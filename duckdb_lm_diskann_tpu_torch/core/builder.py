@@ -26,11 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from duckdb_lm_diskann_tpu.common.types import EdgeType
-
+from ..common.types import EdgeType
 from ..ops import topk as topk_ops
 from ..ops.distance import batched_all_pairs_distance, pairwise_distance
-from ..ops.quantize import encode_int4
+from ..ops.quantize import encode_int4, encode_int8
+from ..ops.ternary import encode_ternary
 from .graph import GraphArrays, GraphParams
 from .searcher import search_for_initial_candidates
 
@@ -46,12 +46,43 @@ _FORCE_ROUNDS = 2
 _PAIR_GATHER_BYTES = 1 << 30
 
 
-def _require_int4(params: GraphParams) -> None:
-    if params.edge_type is not EdgeType.INT4:
+_PORTED_EDGE_TYPES = (EdgeType.INT4, EdgeType.TERNARY, EdgeType.INT8)
+
+
+def require_ported_codec(params: GraphParams) -> None:
+    if params.edge_type not in _PORTED_EDGE_TYPES:
         raise NotImplementedError(
             f"edge type {params.edge_type.value} is not ported yet "
             "(ROADMAP queue 1, item 8: the other codecs)"
         )
+
+
+def _encode_edges(
+    arrays: GraphArrays,
+    tgt: torch.Tensor,  # i64[T] target rows
+    slots: torch.Tensor | None,  # i64[T] edge slot, or None for whole rows
+    vecs: torch.Tensor,  # f32[T, R, D] (whole rows) or f32[T, D]
+    ok: torch.Tensor | None,  # bool[T, R]: False slots get zero codes
+    params: GraphParams,
+) -> None:
+    """Encode ``vecs`` with the index's codec and write the codes (and
+    scales) at ``arrays``' [tgt] rows, or at [tgt, slots] (in place)."""
+    et = params.edge_type
+    if et is EdgeType.TERNARY:
+        fields = dict(zip(("edge_pos", "edge_neg"), encode_ternary(vecs)))
+    elif et is EdgeType.INT8:
+        fields = dict(zip(("edge_i8", "edge_scale"), encode_int8(vecs)))
+    else:
+        fields = dict(zip(("edge_i4", "edge_scale"), encode_int4(vecs)))
+    for name, val in fields.items():
+        if ok is not None:
+            mask = ok if val.dim() == ok.dim() else ok[..., None]
+            val = torch.where(mask, val, torch.zeros_like(val))
+        dest = getattr(arrays, name)
+        if slots is None:
+            dest[tgt] = val
+        else:
+            dest[tgt, slots] = val
 
 
 def batched_robust_prune(
@@ -112,23 +143,17 @@ def write_neighbor_rows(
     *,
     params: GraphParams,
 ) -> GraphArrays:
-    """Set the neighbor list and cached INT4 edge codes of each target row
-    (in place). Targets must be unique."""
-    _require_int4(params)
+    """Set the neighbor list and cached edge codes of each target row (in
+    place); empty slots get zero codes and zero scales. Targets must be
+    unique."""
+    require_ported_codec(params)
     keep = target_slots >= 0
     tgt = target_slots[keep].long()
     nbr = nbr_slots[keep]
-    nbr_ok = nbr >= 0
     nbr_vecs = arrays.vectors[nbr.clamp_min(0).long()].float()  # [T, R, D]
-    codes, scale = encode_int4(nbr_vecs)
     arrays.neighbors[tgt] = nbr
     arrays.dirty_rows[tgt] = True
-    arrays.edge_i4[tgt] = torch.where(
-        nbr_ok[..., None], codes, torch.zeros_like(codes)
-    )
-    arrays.edge_scale[tgt] = torch.where(
-        nbr_ok, scale, torch.zeros_like(scale)
-    )
+    _encode_edges(arrays, tgt, None, nbr_vecs, nbr >= 0, params)
     return arrays
 
 
@@ -284,14 +309,12 @@ def write_single_edge_codes(
     *,
     params: GraphParams,
 ) -> GraphArrays:
-    """Write one cached INT4 edge code per (target, slot) pair (in place).
-    Pairs must be unique within one call."""
-    _require_int4(params)
+    """Write one cached edge code per (target, slot) pair (in place). Pairs
+    must be unique within one call."""
+    require_ported_codec(params)
     t = tgts[ok].long()
     s = slots[ok].clamp_min(0).long()
-    codes, scale = encode_int4(cand_vecs[ok][:, None, :])
-    arrays.edge_i4[t, s] = codes[:, 0]
-    arrays.edge_scale[t, s] = scale[:, 0]
+    _encode_edges(arrays, t, s, cand_vecs[ok], None, params)
     arrays.dirty_rows[t] = True
     return arrays
 

@@ -5,9 +5,14 @@ workflows.
 Counterpart of ``duckdb_lm_diskann_tpu/core/coordinator.py`` for the build
 and search path: ``insert`` (bootstrap node, then batches that ramp with
 the graph size), ``bulk_build`` (+ medoid entry point) and single-batch
-``search`` (``batch_size`` runs a plain loop over batches). The device is
-explicit: ``Coordinator(config, capacity, device="cuda")`` keeps every
-tensor there, and raises if CUDA is not available.
+``search`` (``batch_size`` runs a plain loop over batches). The index
+lives on the card: ``Coordinator(config, capacity)`` keeps every tensor on
+CUDA and raises if CUDA is not available; ``device="cpu"`` asks for the
+CPU (the tests do, with the kernels' plain versions).
+
+Edge codecs: INT4, TERNARY and INT8, including ``edge_type=None``, which
+resolves to the reference's defaults (TERNARY for COSINE/IP, INT8 for L2).
+The others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,11 +23,10 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from duckdb_lm_diskann_tpu.common.types import INVALID_ROW_ID, EdgeType
-from duckdb_lm_diskann_tpu.core.config import LmDiskannConfig
-from duckdb_lm_diskann_tpu.utils.tracing import SearchStats
-
-from .builder import insert_batch
+from ..common.types import INVALID_ROW_ID
+from ..utils.tracing import SearchStats
+from .builder import insert_batch, require_ported_codec
+from .config import LmDiskannConfig
 from .graph import (
     GraphArrays,
     GraphParams,
@@ -55,19 +59,14 @@ class Coordinator:
         self,
         config: LmDiskannConfig,
         initial_capacity: int = _MIN_CAPACITY,
-        device="cpu",
+        device="cuda",
     ):
-        config.validate()
+        self.params = GraphParams.from_config(config)  # validates
+        require_ported_codec(self.params)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Coordinator(device='cuda'): CUDA is not available")
         self.config = config
-        self.params = GraphParams.from_config(config)
-        if self.params.edge_type is not EdgeType.INT4:
-            raise NotImplementedError(
-                f"edge type {self.params.edge_type.value} is not ported yet "
-                "(ROADMAP queue 1, item 8: the other codecs)"
-            )
         self.allocator = SlotAllocator()
         # Power-of-two capacities, grown by doubling (as in the JAX package).
         capacity = _MIN_CAPACITY

@@ -32,13 +32,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from duckdb_lm_diskann_tpu.common.types import EdgeType, MetricType, VectorType
-from duckdb_lm_diskann_tpu.core.config import (
-    LmDiskannConfig,
-    words_per_plane_u32,
-)
-
+from ..common.types import EdgeType, MetricType, VectorType
 from ..ops.quantize import words_per_i4
+from .config import LmDiskannConfig, words_per_plane_u32
 
 _WORD_FIELDS = ("edge_pos", "edge_neg", "edge_i4")
 
@@ -110,6 +106,15 @@ class GraphParams:
 
     @classmethod
     def from_config(cls, config: LmDiskannConfig) -> "GraphParams":
+        """Parameters of a validated port config. A config of another class
+        (the JAX package's) is refused: its enum members are not the port's,
+        and ``is`` comparisons would silently fall through."""
+        if not isinstance(config, LmDiskannConfig):
+            raise TypeError(
+                f"expected {LmDiskannConfig.__module__}.LmDiskannConfig, got "
+                f"{type(config).__module__}.{type(config).__name__}"
+            )
+        config.validate()
         return cls(
             dims=config.dimensions,
             r=config.r,

@@ -18,8 +18,12 @@ the "any lane unvisited" flag only every ``_CHECK_EVERY`` hops (each read
 waits for the device); ``hops`` still counts exactly the hops in which some
 lane was active, as the JAX while-loop does.
 
-Frontier scoring goes through ``kernels.int4_frontier``: the Hopper kernel
-for CUDA tensors, its plain PyTorch version for CPU tensors.
+Frontier scoring goes through the codec's kernel module
+(``kernels.int4_frontier``, ``kernels.int8_frontier``,
+``kernels.ternary_frontier``): the Hopper kernel for CUDA tensors, its plain
+PyTorch version for CPU tensors. TERNARY scores are integers mapped to
+distances by ``similarity_to_distance`` after the kernel, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -28,11 +32,13 @@ from typing import NamedTuple
 
 import torch
 
-from duckdb_lm_diskann_tpu.common.types import EdgeType
-
+from ..common.types import EdgeType
 from ..kernels.int4_frontier import int4_frontier_scores
+from ..kernels.int8_frontier import int8_frontier_scores
+from ..kernels.ternary_frontier import ternary_frontier_scores
 from ..ops import topk as topk_ops
-from ..ops.distance import pairwise_distance
+from ..ops.distance import pairwise_distance, similarity_to_distance
+from ..ops.ternary import encode_ternary
 from .graph import GraphArrays, GraphParams
 
 INF = float("inf")
@@ -53,17 +59,29 @@ def _score_edges(
     params: GraphParams,
     cur: torch.Tensor,  # i32[B] current node slots
     queries: torch.Tensor,  # f32[B, D]
+    q_planes: tuple[torch.Tensor, torch.Tensor] | None,  # TERNARY only
 ) -> torch.Tensor:
     """Approximate distances [B, R] from the visited nodes' cached edge
     codes — no second gather for frontier scoring
     (vectordiskann.c:1370-1396)."""
-    if params.edge_type is EdgeType.INT4:
+    et = params.edge_type
+    if et is EdgeType.INT4:
         return int4_frontier_scores(
             cur, queries, arrays.edge_i4, arrays.edge_scale,
             metric=params.metric,
         )
+    if et is EdgeType.INT8:
+        return int8_frontier_scores(
+            cur, queries, arrays.edge_i8, arrays.edge_scale,
+            metric=params.metric,
+        )
+    if et is EdgeType.TERNARY:
+        sim = ternary_frontier_scores(
+            cur, *q_planes, arrays.edge_pos, arrays.edge_neg
+        )
+        return similarity_to_distance(sim.float(), params.metric)
     raise NotImplementedError(
-        f"edge type {params.edge_type.value} is not ported yet "
+        f"edge type {et.value} is not ported yet "
         "(ROADMAP queue 1, item 8: the other codecs)"
     )
 
@@ -101,6 +119,12 @@ def beam_search(
     S = seeds.shape[0]
     if S > L:
         raise ValueError("seed count exceeds l_search")
+    # TERNARY queries are encoded once per search, not once per hop.
+    q_planes = (
+        encode_ternary(queries)
+        if params.edge_type is EdgeType.TERNARY
+        else None
+    )
 
     # --- Seed the beam with the exact distances of the entry point(s)
     # (vectordiskann.c:1306-1322).
@@ -157,7 +181,7 @@ def beam_search(
         if not assume_all_valid:
             live = live & arrays.valid[nbrs.clamp_min(0).long()]
         live = live & active[:, None]
-        edge_dist = _score_edges(arrays, params, cur, queries)  # [B, R]
+        edge_dist = _score_edges(arrays, params, cur, queries, q_planes)
 
         # Skip neighbors already in the beam or already-visited seeds (see
         # the JAX searcher for why this replaces the visited-list scan).

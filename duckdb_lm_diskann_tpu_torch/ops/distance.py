@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from duckdb_lm_diskann_tpu.common.types import MetricType
+from ..common.types import MetricType
 
 
 def _l2_from_sq(dist_sq: torch.Tensor) -> torch.Tensor:
@@ -84,3 +84,19 @@ def batched_all_pairs_distance(
     if metric is MetricType.COSINE:
         return _cosine(dot, sq[:, :, None], sq[:, None, :])
     raise ValueError(f"Unsupported metric type {metric}")
+
+
+def similarity_to_distance(
+    sim: torch.Tensor, metric: MetricType
+) -> torch.Tensor:
+    """CalculateApproxDistance's similarity->distance mapping
+    (distance.hpp:231-242) for ternary scores: IP -> -sim, COSINE -> 1-sim
+    on the raw integer dot (not a normalised cosine), L2 -> rejected."""
+    if metric is MetricType.IP:
+        return -sim
+    if metric is MetricType.COSINE:
+        return 1.0 - sim
+    raise ValueError(
+        "L2 metric is not directly compatible with ternary approximate "
+        "distance. Ternary approximation is for IP/Cosine-like similarities."
+    )

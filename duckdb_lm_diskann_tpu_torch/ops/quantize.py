@@ -1,9 +1,14 @@
-"""INT4 edge-cache codes in the planar device layout.
+"""INT8 and INT4 edge-cache codes.
 
-Counterpart of the INT4 half of ``duckdb_lm_diskann_tpu/ops/quantize.py``.
-A code vector is ceil(D/8) 32-bit words; nibble slot s of word w holds dim
-s*DW + w (DW = ceil(D/8)), as two's-complement 4-bit values in [-7, 7] with
-a per-vector scale max|v|/7. Pad nibbles (dims >= D) are zero.
+Counterpart of ``duckdb_lm_diskann_tpu/ops/quantize.py``.
+
+INT8: per-vector abs-max codes, scale = max|v| / 127 (a division, as the
+source says), code = clip(round(v / scale), -127, 127); an all-zero vector
+gets scale 0 and zero codes.
+
+INT4: a code vector is ceil(D/8) 32-bit words; nibble slot s of word w
+holds dim s*DW + w (DW = ceil(D/8)), as two's-complement 4-bit values in
+[-7, 7] with a per-vector scale max|v|/7. Pad nibbles (dims >= D) are zero.
 
 The words are stored as int32 with the same bits as the JAX package's
 uint32 words: torch on the CPU has no right shift for uint32. An arithmetic
@@ -28,6 +33,38 @@ def half_dims(d: int) -> int:
 def words_per_i4(d: int) -> int:
     """32-bit words per INT4 code vector in the planar device layout."""
     return (d + 7) // 8
+
+
+def encode_int8(vectors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """vectors [..., D] -> (codes int8 [..., D], scales f32 [...])."""
+    v = vectors.float()
+    scale = v.abs().amax(-1) / 127.0
+    pos = scale > 0.0
+    inv = torch.where(
+        pos, 1.0 / torch.where(pos, scale, torch.ones_like(scale)),
+        torch.zeros_like(scale),
+    )
+    codes = torch.clamp(torch.round(v * inv[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def decode_int8(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """codes int8 [..., D], scales [...] -> f32 [..., D]."""
+    return codes.float() * scales[..., None]
+
+
+def encode_int8_np(vectors: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """HOST form of ``encode_int8``."""
+    v = np.asarray(vectors, dtype=np.float32)
+    scale = np.max(np.abs(v), axis=-1) / 127.0
+    inv = np.where(scale > 0.0, 1.0 / np.where(scale > 0.0, scale, 1.0), 0.0)
+    codes = np.clip(np.round(v * inv[..., None]), -127, 127).astype(np.int8)
+    return codes, scale.astype(np.float32)
+
+
+def decode_int8_np(codes: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """HOST form of ``decode_int8``."""
+    return codes.astype(np.float32) * np.asarray(scales)[..., None]
 
 
 def encode_int4(vectors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
