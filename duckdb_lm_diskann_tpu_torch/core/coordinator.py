@@ -4,8 +4,9 @@ workflows.
 
 Counterpart of ``duckdb_lm_diskann_tpu/core/coordinator.py`` for the build
 and search path: ``insert`` (bootstrap node, then batches that ramp with
-the graph size), ``bulk_build`` (+ medoid entry point) and single-batch
-``search`` (``batch_size`` runs a plain loop over batches). The index
+the graph size), ``bulk_build`` (+ medoid entry point) and ``search`` with
+the JAX package's serving options (beam width, seed sets, filters, read
+views, pipelined batches, adaptive seeds, streaming lanes). The index
 lives on the card: ``Coordinator(config, capacity)`` keeps every tensor on
 CUDA and raises if CUDA is not available; ``device="cpu"`` asks for the
 CPU (the tests do, with the kernels' plain versions).
@@ -34,7 +35,12 @@ from .graph import (
     grow_graph_arrays,
     make_graph_arrays,
 )
-from .searcher import beam_search
+from .searcher import (
+    beam_search,
+    beam_search_many,
+    beam_search_stream,
+    pick_adaptive_seeds,
+)
 
 _MIN_CAPACITY = 1024
 
@@ -243,12 +249,39 @@ class Coordinator:
         queries: np.ndarray,
         k: int,
         l_search: int | None = None,
+        beam_width: int = 1,
         n_seeds: int = 1,
+        allowed_rowids: np.ndarray | None = None,
+        view: ReadView | None = None,
         batch_size: int | None = None,
+        adaptive_seeds: int = 0,
+        seed_sample: int = 4096,
+        stream: bool = False,
+        lanes: int = 1024,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Batched top-k search. Returns (rowids i64[B, k], dists f32[B, k]);
-        empty results are (-1, +inf). ``batch_size`` splits the queries
-        into batches searched one after another."""
+        """Batched top-k search, with the JAX package's parameters in its
+        order (its last one, ``pad_to_bucket``, exists for XLA's static
+        shapes and is not ported). Returns (rowids i64[B, k], dists
+        f32[B, k]); empty results are (-1, +inf).
+
+        ``beam_width``: nodes visited per hop (E). ``n_seeds``: the entry
+        point plus stratified live seeds. ``allowed_rowids`` restricts the
+        RESULTS to those rows (traversal still routes through every node).
+        ``view``: search a captured ReadView instead of the live state.
+
+        ``batch_size``: when set and B > batch_size, the queries run as
+        ceil(B / batch_size) lock-step batches through beam_search_many;
+        the last is padded with repeats of query 0, whose results are
+        discarded. ``last_search_stats`` then sums ``hops`` over every
+        batch (pad lanes can extend the last one) and counts visits over
+        the B real lanes only, as the JAX package does.
+
+        ``adaptive_seeds``: when > 0, each query's beam is seeded with its
+        ``adaptive_seeds`` nearest nodes among a ``seed_sample``-node
+        stratified live sample (pick_adaptive_seeds); overrides ``n_seeds``.
+
+        ``stream``: run through beam_search_stream, ``lanes`` lanes refilled
+        from the query queue as they converge (beam_width must be 1)."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         if queries.shape[1] != self.config.dimensions:
             raise ValueError(
@@ -257,36 +290,70 @@ class Coordinator:
             )
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if stream and beam_width != 1:
+            raise ValueError("stream search supports beam_width=1 only")
         B = queries.shape[0]
         # L_search = max(explicit param or config default, k)
         # (Coordinator.cpp:63-102 / Searcher::Search :256-272).
         L = max(l_search if l_search is not None else self.config.l_search, k)
-        view = self.capture_view(min(n_seeds, L))
+        if view is None:
+            view = self.capture_view(min(n_seeds, L))
         if view.count == 0 or view.entry_slot < 0:
             return (
                 np.full((B, k), INVALID_ROW_ID, np.int64),
                 np.full((B, k), np.inf, np.float32),
             )
-        seeds = torch.as_tensor(view.seeds, device=self.device)
-        step = batch_size or max(B, 1)
-        t0 = time.perf_counter()
-        slots, dists, visited, hops = [], [], 0, 0
-        for off in range(0, B, step):
-            res = beam_search(
-                view.arrays,
-                torch.as_tensor(queries[off : off + step], device=self.device),
-                seeds,
-                params=self.params,
-                l_search=L,
-                k=k,
-                assume_all_valid=not view.ever_tombstoned,
+        dev = view.arrays.device
+        seeds = view.seeds
+        allowed = None
+        if allowed_rowids is not None:
+            # Slot mask: a slot is allowed iff its rowid is in the set.
+            allowed = torch.as_tensor(
+                np.isin(
+                    view.slot_rowids[: view.arrays.capacity],
+                    np.asarray(allowed_rowids, np.int64),
+                ),
+                device=dev,
             )
-            slots.append(res.topk_slots.cpu().numpy())
-            dists.append(res.topk_dists.cpu().numpy())
-            visited += int(res.visited_count.sum())
-            hops += int(res.hops)
-        slots = np.concatenate(slots)
-        dists = np.concatenate(dists)
+        opts = dict(
+            params=self.params, l_search=L, k=k, allowed=allowed,
+            assume_all_valid=not view.ever_tombstoned,
+        )
+        t0 = time.perf_counter()
+        if batch_size is not None and B > batch_size and not stream:
+            # Pad B to a multiple of batch_size with repeats of query 0.
+            nb = -(-B // batch_size)
+            padded = np.broadcast_to(
+                queries[:1], (nb * batch_size, queries.shape[1])
+            ).copy()
+            padded[:B] = queries
+            q_dev = torch.as_tensor(padded, device=dev)
+            entry = self._entry(view, q_dev, adaptive_seeds, seed_sample, L)
+            if adaptive_seeds > 0:
+                entry = entry.reshape(nb, batch_size, -1)
+            mres = beam_search_many(
+                view.arrays, q_dev.reshape(nb, batch_size, -1), entry,
+                beam_width=beam_width, **opts,
+            )
+            slots = mres.topk_slots.reshape(-1, k)[:B].cpu().numpy()
+            dists = mres.topk_dists.reshape(-1, k)[:B].cpu().numpy()
+            visited = int(mres.visited_count.reshape(-1)[:B].sum())
+            hops = int(mres.hops.sum())
+        else:
+            q_dev = torch.as_tensor(queries, device=dev)
+            entry = self._entry(view, q_dev, adaptive_seeds, seed_sample, L)
+            if stream:
+                res = beam_search_stream(
+                    view.arrays, q_dev, entry, lanes=lanes, **opts
+                )
+            else:
+                res = beam_search(
+                    view.arrays, q_dev, entry, beam_width=beam_width, **opts
+                )
+            slots = res.topk_slots.cpu().numpy()
+            dists = res.topk_dists.cpu().numpy()
+            visited = int(res.visited_count.sum())
+            hops = int(res.hops)
         wall = time.perf_counter() - t0  # after the device results are read
         self.last_search_stats = SearchStats(
             queries=B,
@@ -295,7 +362,7 @@ class Coordinator:
             l_search=L,
             k=k,
             # R edge-code scores + 1 exact per visit, plus the seed scores.
-            distance_ops=visited * (self.params.r + 1) + B * len(view.seeds),
+            distance_ops=visited * (self.params.r + 1) + B * len(seeds),
             wall_time_s=wall,
         )
         rowids = np.where(
@@ -304,3 +371,44 @@ class Coordinator:
             INVALID_ROW_ID,
         )
         return rowids, dists
+
+    def _entry(
+        self,
+        view: ReadView,
+        q_dev: torch.Tensor,
+        adaptive_seeds: int,
+        seed_sample: int,
+        l_search: int,
+    ) -> torch.Tensor:
+        """The search's seeds: the view's pinned set i32[S], or per-query
+        adaptive seeds i32[B, S] when ``adaptive_seeds`` > 0."""
+        if adaptive_seeds > 0:
+            return self._pick_adaptive(
+                view, q_dev, adaptive_seeds, seed_sample, l_search
+            )
+        return torch.as_tensor(view.seeds, device=view.arrays.device)
+
+    def _pick_adaptive(
+        self,
+        view: ReadView,
+        q_dev: torch.Tensor,
+        s_count: int,
+        seed_sample: int,
+        l_search: int,
+    ) -> torch.Tensor:
+        """Per-query adaptive seeds i32[B, S]: the nearest of a stratified
+        live sample (searcher.pick_adaptive_seeds)."""
+        cap = view.arrays.capacity
+        live = np.nonzero(view.slot_rowids[:cap] != INVALID_ROW_ID)[0]
+        m = max(min(seed_sample, len(live)), 1)
+        # Even coverage over the WHOLE live range: live[(i*len)//m], so the
+        # insertion-order tail (whole clusters, on clustered corpora) is
+        # sampled too.
+        sample = live[(np.arange(m, dtype=np.int64) * len(live)) // m]
+        return pick_adaptive_seeds(
+            view.arrays.vectors,
+            q_dev,
+            torch.as_tensor(sample.astype(np.int32), device=view.arrays.device),
+            metric=self.params.metric,
+            s_count=max(1, min(s_count, len(sample), l_search)),
+        )

@@ -22,7 +22,7 @@ leaked = sorted(
     if m.split(".")[0] in ("jax", "jaxlib", "bench", "duckdb_lm_diskann_tpu")
 )
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -35,6 +35,10 @@ def test_port_imports_no_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # common (1), core (5), kernels (4), ops (4), utils (2) and the five
-    # subpackages themselves.
-    assert int(proc.stdout.strip()) >= 21, proc.stdout
+    names = proc.stdout.split()
+    # common (1), core (5), experiments (1), kernels (5), ops (4), utils (3)
+    # and the six subpackages themselves.
+    assert len(names) >= 25, names
+    pkg = "duckdb_lm_diskann_tpu_torch."
+    for mod in ("experiments.profile_hop", "utils.roofline", "kernels.row_gather"):
+        assert pkg + mod in names

@@ -1,4 +1,5 @@
-"""The frontier scorers of the PyTorch port: INT4, TERNARY and INT8.
+"""The kernels of the PyTorch port: the INT4, TERNARY and INT8 frontier
+scorers and the row gather of the hop profiler.
 
 On the CPU each wrapper runs its plain PyTorch version, held here against
 the JAX package's Pallas kernels (interpret mode) and its jnp paths:
@@ -7,13 +8,18 @@ agree to rtol = atol = 1e-5, as tests/test_pallas_kernels.py uses, because
 the two sides sum the D terms in a different f32 order. The CUDA kernels
 themselves are compared with the plain versions by the ``cuda`` tests,
 which need a card and skip without one (chip_smoke.py does the same at the
-main path's shapes). JAX is imported inside the tests that use it, so that
+main path's shapes). The row gather's plain version is held against the hop
+profiler's Pallas kernels (``benchmarks/profile_hop.py``, interpret mode),
+and the kernel against the plain version exactly, on the card. JAX is
+imported inside the tests that use it, so that
 the ``cuda`` tests also run where only the port's dependencies are
 installed.
 """
 
+import importlib.util
 import os
 import stat
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from duckdb_lm_diskann_tpu_torch.kernels import (
     _build,
     int4_frontier,
     int8_frontier,
+    row_gather,
     ternary_frontier,
 )
 from duckdb_lm_diskann_tpu_torch.ops.quantize import (
@@ -36,7 +43,7 @@ from tests.torch_configs import METRIC_NAMES, metrics
 from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 METRICS = [MetricType.L2, MetricType.IP, MetricType.COSINE]
-KERNELS = [int4_frontier, ternary_frontier, int8_frontier]
+KERNELS = [int4_frontier, ternary_frontier, int8_frontier, row_gather]
 
 
 def _inputs(rng, C=64, R=16, B=12, D=32):
@@ -306,7 +313,8 @@ def test_parallel_build_reports_every_failure(tmp_path, monkeypatch):
     _point_builds_at(monkeypatch, tmp_path, str(fake))
     with pytest.raises(RuntimeError) as err:
         _build.build_libraries([k.LIBRARY for k in KERNELS])
-    for name in ("int4_frontier.cu", "ternary_frontier.cu", "int8_frontier.cu"):
+    for name in ("int4_frontier.cu", "ternary_frontier.cu", "int8_frontier.cu",
+                 "row_gather.cu"):
         assert f"cannot build {name}" in str(err.value)
     assert os.listdir(tmp_path / "build") == []
     assert all(k.LIBRARY._fn is None for k in KERNELS)
@@ -365,3 +373,135 @@ def test_int8_kernel_matches_plain_on_the_card(cuda_device, d):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert int8_frontier.LAUNCHES == before + len(METRICS)
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_profile_hop():
+    """benchmarks/profile_hop.py as a module, with the process state its
+    import changes (the JAX compilation cache directory, sys.path) put
+    back, and the Pallas globals that only its gather_ab() assigns set."""
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    cache_dir = jax.config.jax_compilation_cache_dir
+    path = list(sys.path)
+    spec = importlib.util.spec_from_file_location(
+        "_profile_hop_reference", os.path.join(_REPO, "benchmarks", "profile_hop.py")
+    )
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        sys.path[:] = path
+    mod.pl, mod.pltpu = pl, pltpu
+    return mod
+
+
+def _gather_tables(rng, C=64, widths=(40,)):
+    tables = [
+        rng.integers(0, 2**32, (C, w), dtype=np.uint64).astype(np.uint32)
+        for w in widths
+    ]
+    idx = rng.integers(0, C, 12).astype(np.int32)
+    idx[3] = idx[4] = idx[9] = idx[0]  # repeated rows
+    idx[5], idx[6] = 0, C - 1
+    return idx, tables
+
+
+def test_row_gather_plain_matches_jax(rng):
+    """One table (C=64, X=40) and four SoA tables (widths 16/8/8/32) with
+    repeated rows: the plain version equals the hop profiler's Pallas
+    kernels (interpret mode, K = 2 and 8), and so does the wrapper on CPU
+    tensors, which launches nothing."""
+    import jax.numpy as jnp
+
+    ref = _jax_profile_hop()
+    idx, (src,) = _gather_tables(rng)
+    got = row_gather.pipelined_gather_plain(
+        torch.from_numpy(idx), torch.from_numpy(src.view(np.int32))
+    )
+    idx4, tabs4 = _gather_tables(rng, widths=(16, 8, 8, 32))
+    t4 = [torch.from_numpy(t.view(np.int32)) for t in tabs4]
+    got4 = [row_gather.pipelined_gather_plain(torch.from_numpy(idx4), t)
+            for t in t4]
+    for k in (2, 8):
+        want = ref._pipelined_gather(
+            jnp.asarray(idx), jnp.asarray(src), n_flight=k, interpret=True
+        )
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+        want4 = ref._pipelined_gather4(
+            jnp.asarray(idx4), [jnp.asarray(t) for t in tabs4], n_flight=k,
+            interpret=True,
+        )
+        for g, w in zip(got4, want4):
+            np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+    before = (row_gather.LAUNCHES, row_gather.LAUNCHES4)
+    assert torch.equal(
+        row_gather.pipelined_gather(
+            torch.from_numpy(idx), torch.from_numpy(src.view(np.int32))
+        ),
+        got,
+    )
+    for g, w in zip(row_gather.pipelined_gather4(torch.from_numpy(idx4), t4), got4):
+        assert torch.equal(g, w)
+    assert (row_gather.LAUNCHES, row_gather.LAUNCHES4) == before
+
+
+def test_row_gather_clamps_and_rejects(rng):
+    src = torch.arange(5 * 3, dtype=torch.int32).reshape(5, 3)
+    idx = torch.tensor([-4, 0, 4, 9], dtype=torch.int32)
+    got = row_gather.pipelined_gather(idx, src)
+    assert got[:, 0].tolist() == [0, 0, 12, 12]  # rows 0, 0, 4, 4
+    with pytest.raises(ValueError, match="n_flight"):
+        row_gather.pipelined_gather(idx, src, n_flight=3)
+    with pytest.raises(ValueError, match="idx must be"):
+        row_gather.pipelined_gather(idx.long(), src)
+    with pytest.raises(ValueError, match="differ in rows"):
+        row_gather.pipelined_gather4(idx, (src, src, src, src[:4]))
+    with pytest.raises(ValueError, match="four tables"):
+        row_gather.pipelined_gather4(idx, (src, src))
+    with pytest.raises(ValueError, match="empty"):
+        row_gather.pipelined_gather(idx, src[:0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_flight", row_gather.N_FLIGHT)
+def test_row_gather_kernel_equals_plain_on_the_card(cuda_device, n_flight):
+    """Exactly equal: the 16-byte path (X = 1280, 40), the 4-byte path
+    (X = 130, a ragged width), four SoA tables in one launch, repeated and
+    out-of-range rows, and rows above 2^21 of a 1280-word table (64-bit
+    offsets: row * X passes 2^31)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n_flight)
+
+    def rand(shape):
+        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32,
+                             device=cuda_device, generator=gen)
+
+    idx = torch.randint(0, 4096, (1000,), dtype=torch.int32,
+                        device=cuda_device, generator=gen)
+    idx[1::7] = idx[0]
+    idx[2], idx[3] = -5, 10**6
+    before = (row_gather.LAUNCHES, row_gather.LAUNCHES4)
+    for x in (1280, 40, 130):
+        src = rand((4096, x))
+        got = row_gather.pipelined_gather(idx, src, n_flight=n_flight)
+        assert torch.equal(got, row_gather.pipelined_gather_plain(idx, src))
+    tabs = [rand((4096, x)) for x in (128, 64, 64, 1024)]
+    for g, t in zip(row_gather.pipelined_gather4(idx, tabs, n_flight), tabs):
+        assert torch.equal(g, row_gather.pipelined_gather_plain(idx, t))
+    # Rows past 2^21 of a 1280-word table: only the gathered rows are set.
+    big = torch.empty(((1 << 21) + 4096, 1280), dtype=torch.int32,
+                      device=cuda_device)
+    hi = torch.randint(1 << 21, big.shape[0], (300,), dtype=torch.int32,
+                       device=cuda_device, generator=gen)
+    big[hi.long()] = rand((300, 1280))
+    got = row_gather.pipelined_gather(hi, big, n_flight=n_flight)
+    torch.cuda.synchronize()
+    assert torch.equal(got, row_gather.pipelined_gather_plain(hi, big))
+    assert (row_gather.LAUNCHES, row_gather.LAUNCHES4) == (
+        before[0] + 4, before[1] + 1
+    )

@@ -234,5 +234,8 @@ def test_empty_graph_and_unported_paths(rng):
     res = beam_search(arrays, q, -1, params=params, l_search=8, k=3)
     assert (res.topk_slots == -1).all() and torch.isinf(res.topk_dists).all()
     assert int(res.hops) == 0
-    with pytest.raises(NotImplementedError, match="beam_width"):
-        beam_search(arrays, q, 0, params=params, l_search=8, k=3, beam_width=2)
+    res = beam_search(arrays, q, -1, params=params, l_search=8, k=3,
+                      beam_width=2)
+    assert (res.topk_slots == -1).all() and int(res.hops) == 0
+    with pytest.raises(ValueError, match="beam_width"):
+        beam_search(arrays, q, 0, params=params, l_search=8, k=3, beam_width=0)

@@ -47,3 +47,21 @@ def configs(
         cfg.validate()
         out.append(cfg)
     return tuple(out)
+
+
+def jax_graph(metric, edge_type, n=300, dims=16, nq=12, seed=0x5E7E):
+    """A graph built by the JAX Coordinator from seeded data, the port's
+    config of it, the data and noisy queries near data points."""
+    import numpy as np
+
+    from duckdb_lm_diskann_tpu.core.coordinator import Coordinator
+
+    rng = np.random.default_rng(seed)
+    jax_cfg, port_cfg = configs(metric=metric, edge_type=edge_type, dims=dims)
+    data = rng.standard_normal((n, dims)).astype(np.float32)
+    coord = Coordinator(jax_cfg, initial_capacity=n)
+    coord.bulk_build(list(range(n)), data, max_batch=64)
+    queries = data[rng.integers(0, n, nq)] + 0.05 * rng.standard_normal(
+        (nq, dims)
+    ).astype(np.float32)
+    return coord, port_cfg, data, queries
