@@ -23,7 +23,15 @@ Phases (each raises on failure, so the script exits non-zero):
    above 2^21 of a 1280-word table, exactly equal. Each is timed with CUDA
    events, every call on a fresh set of rows, beside the least time the
    card could take for the same work (``bound_ms``) and, for the one-table
-   gather, ``torch.index_select`` (``library_ms``).
+   gather, ``torch.index_select`` (``library_ms``; the two are timed in
+   turns: kernel, library, library, kernel). The two ring kernels (INT4,
+   TERNARY) are also timed at B = 1, 256, 1024 and 2048 with their launch
+   plans (grid, stages, branch), and held against their plain versions over
+   2^20 rows at B = 1, 7, 1024, 5000 and R = 5, 13, 64 (TERNARY at W = 2,
+   4, 30, 66; INT4 at D = 30, 40, 100, 128), with repeated and
+   out-of-range rows and misaligned table views: both the bulk-copy and
+   the vector branch must run. The time of an empty kernel by the same
+   method (``timing_floor_ms``) is printed beside them.
 3. The hop profiler (``experiments/profile_hop.py``) at 2^20 rows: the
    knockout rows of the INT4 hop, then the row-gather A/B; its rows go to
    standard output. The row-gather kernel must launch in the A/B.
@@ -122,6 +130,34 @@ def bound(curs, reps, row_bytes, fixed_bytes, ops):
     return float(np.median(times)), by
 
 
+# Batch sizes of the scorers' time sweep: B=1 latency, GIST search (256),
+# GIST and INT8 build (1024), the INT4 headline build (2048).
+SWEEP_BATCHES = (1, 256, 1024, 2048)
+
+
+def plan_of(plan):
+    return {"grid": plan.grid, "stages": plan.stages,
+            "branch": "bulk" if plan.bulk else "vector"}
+
+
+def batch_sweep(torch, dev, gen, mod, name, n_rows, reps, make_queries, call,
+                row_bytes, fixed_bytes_per_query, ops_per_query):
+    """Card time of a ring scorer at each of SWEEP_BATCHES on fresh rows of
+    ``n_rows``, beside its bound and the plan it launched with."""
+    out = {}
+    for b in SWEEP_BATCHES:
+        queries = make_queries(b)
+        curs = _random_curs(torch, dev, gen, n_rows, b, reps)
+        ms = time_ms(torch, lambda i: call(curs[i], queries), reps)
+        bound_ms, _ = bound(curs, reps, row_bytes, b * fixed_bytes_per_query,
+                            b * ops_per_query)
+        out[str(b)] = {"ms": ms, "bound_ms": bound_ms,
+                       "plan": plan_of(mod.LAST_PLAN)}
+        log(f"{name} B={b}: kernel {ms:.5f} ms, bound {bound_ms:.5f} ms, "
+            f"plan {out[str(b)]['plan']}")
+    return out
+
+
 def _random_curs(torch, dev, gen, n_rows, b, reps):
     curs = torch.randint(
         0, n_rows, (reps + 3, b), dtype=torch.int32, device=dev, generator=gen,
@@ -206,6 +242,16 @@ def check_float_scorer(torch, dev, codec, n_rows=1 << 20, r=64, b=1024,
             log(f"{codec} B={b} R={r} D={d} L2: kernel {rec['ms']:.4f} ms "
                 f"(wall {rec['wall_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, "
                 f"bound {rec['bound_ms']:.5f} ms")
+            if codec == "int4":  # the redesigned ring kernel
+                rec["plan"] = plan_of(mod.LAST_PLAN)
+                rec["by_batch"] = batch_sweep(
+                    torch, dev, gen, mod, "int4 D=128 L2", n_rows, reps,
+                    lambda nb: 0.3 * torch.randn((nb, d), device=dev,
+                                                 generator=gen),
+                    lambda cur, q: kernel(cur, q, codes, scale,
+                                          metric=MetricType.L2),
+                    row_bytes, 4 * d + 4 + 4 * r, 4 * r * d,
+                )
         del codes, scale, queries, curs
         _free(torch)
     pallas = "duckdb_lm_diskann_tpu/experiments/pallas_kernels.py"
@@ -272,6 +318,21 @@ def check_ternary(torch, dev, n_rows=1 << 20, r=64, b=1024, reps=20):
             log(f"ternary B={b} R={r} W={w}: kernel {rec['ms']:.4f} ms "
                 f"(wall {rec['wall_ms']:.4f}), "
                 f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms")
+            rec["plan"] = plan_of(kt.LAST_PLAN)
+
+            def query_planes(nb):
+                p = torch.randint(-(2**31), 2**31, (nb, w), dtype=torch.int32,
+                                  device=dev, generator=gen)
+                n = torch.randint(-(2**31), 2**31, (nb, w), dtype=torch.int32,
+                                  device=dev, generator=gen)
+                return p, n & ~p
+
+            rec["by_batch"] = batch_sweep(
+                torch, dev, gen, kt, f"ternary W={w}", n_rows, reps,
+                query_planes,
+                lambda cur, q: kt.ternary_frontier_scores(cur, *q, ep, en),
+                r * w * 4 * 2, 4 * 2 * w + 4 + 4 * r, 12 * r * w,
+            )
         del planes, ep, en, qp, qn, curs
         _free(torch)
     return {
@@ -284,6 +345,122 @@ def check_ternary(torch, dev, n_rows=1 << 20, r=64, b=1024, reps=20):
         **rec,
         "library_ms": None,
     }
+
+
+RING_BATCHES = (1, 7, 1024, 5000)  # 5000: many wraps of every ring
+RING_ROWS = (5, 13, 64)  # R = 5 and 13 take the vector branch
+
+
+def check_ring_cases(torch, dev, n_rows=1 << 20):
+    """The two ring kernels against their plain versions over 2^20 rows at
+    every B of RING_BATCHES and R of RING_ROWS: TERNARY at W = 2, 4, 30, 66
+    exactly, INT4 at D = 30, 40, 100, 128 for L2/IP/cosine to rtol = atol
+    = 1e-5; rows repeat and two lie out of range (the plain version gets
+    them clamped: it indexes); a view of each table one word off a 16-byte
+    boundary takes the vector branch. Both branches must run. Returns
+    {"ternary": ..., "int4": ...} with the largest error and the plans."""
+    from duckdb_lm_diskann_tpu_torch.common.types import MetricType
+    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
+    from duckdb_lm_diskann_tpu_torch.kernels import ternary_frontier as kt
+
+    gen = torch.Generator(device=dev).manual_seed(0x121A6)
+
+    def words(n):  # every bit pattern: the kernels are exact for any bits
+        return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    def curs(b):
+        cur = torch.randint(0, n_rows, (b,), dtype=torch.int32, device=dev,
+                            generator=gen)
+        cur[1::7] = cur[0]
+        if b > 3:
+            cur[2], cur[3] = -5, n_rows + 9
+        return cur, cur.clamp(0, n_rows - 1)
+
+    def view(flat, shape, off=0):
+        n = int(np.prod(shape))
+        return flat[off : off + n].view(shape)
+
+    out = {}
+    t0 = time.perf_counter()
+    flat_p, flat_n = words(n_rows * 64 * 66 + 1), words(n_rows * 64 * 66 + 1)
+    plans, cases = set(), 0
+    for r in RING_ROWS:
+        for w in (2, 4, 30, 66):
+            ep, en = (view(f, (n_rows, r, w)) for f in (flat_p, flat_n))
+            for b in RING_BATCHES:
+                qp, qn = words(b * w).view(b, w), words(b * w).view(b, w)
+                cur, clamped = curs(b)
+                got = kt.ternary_frontier_scores(cur, qp, qn, ep, en)
+                plans.add(tuple(plan_of(kt.LAST_PLAN).values()))
+                want = kt.ternary_frontier_scores_plain(clamped, qp, qn, ep, en)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"ternary ring != plain: R={r} W={w} B={b}, "
+                        f"{int((got != want).sum())} scores, {kt.LAST_PLAN}")
+                cases += 1
+    ep, en = (view(f, (n_rows, 5, 30), off=1) for f in (flat_p, flat_n))
+    q = words(1025 * 30).view(1025, 30)
+    cur, clamped = curs(1024)
+    got = kt.ternary_frontier_scores(cur, q[1:], q[1:], ep, en)
+    plans.add(tuple(plan_of(kt.LAST_PLAN).values()))
+    if not torch.equal(got, kt.ternary_frontier_scores_plain(
+            clamped, q[1:], q[1:], ep, en)):
+        raise AssertionError("ternary ring != plain on misaligned views")
+    branches = sorted({p[2] for p in plans})
+    if branches != ["bulk", "vector"]:
+        raise AssertionError(f"ternary ring cases ran branches {branches}")
+    out["ternary"] = {"cases": cases + 1, "max_abs_err": 0.0,
+                      "branches": branches}
+    log(f"ternary ring == plain: {cases + 1} cases, branches {branches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    del flat_p, flat_n, ep, en, q
+    _free(torch)
+
+    t0 = time.perf_counter()
+    flat_c = words(n_rows * 64 * 16 + 1)
+    flat_s = 0.05 * torch.rand(n_rows * 64 + 1, device=dev, generator=gen)
+    flat_s[::4] = 0.0  # empty edge slots
+    plans, cases, max_err = set(), 0, 0.0
+
+    def hold(cur, clamped, q, codes, scale, what):
+        nonlocal cases, max_err
+        for metric in (MetricType.L2, MetricType.IP, MetricType.COSINE):
+            got = k4.int4_frontier_scores(cur, q, codes, scale, metric=metric)
+            plans.add(tuple(plan_of(k4.LAST_PLAN).values()))
+            want = k4.int4_frontier_scores_plain(clamped, q, codes, scale,
+                                                 metric=metric)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"int4 ring output not finite: {what}")
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"int4 ring {what}: {m}")
+            max_err = max(max_err, float((got - want).abs().max()))
+            cases += 1
+
+    for r in RING_ROWS:
+        for d in (30, 40, 100, 128):
+            codes = view(flat_c, (n_rows, r, (d + 7) // 8))
+            scale = view(flat_s, (n_rows, r))
+            for b in RING_BATCHES:
+                q = 0.3 * torch.randn((b, d), device=dev, generator=gen)
+                q[0] = 0.0  # zero query: cosine 1.0
+                hold(*curs(b), q, codes, scale, f"R={r} D={d} B={b}")
+    q = 0.3 * torch.randn((1025, 30), device=dev, generator=gen)
+    hold(*curs(1024), q[1:], view(flat_c, (n_rows, 5, 4), off=1),
+         view(flat_s, (n_rows, 5), off=1), "misaligned views")
+    branches = sorted({p[2] for p in plans})
+    if branches != ["bulk", "vector"]:
+        raise AssertionError(f"int4 ring cases ran branches {branches}")
+    out["int4"] = {"cases": cases, "max_abs_err": max_err,
+                   "branches": branches}
+    log(f"int4 ring == plain: {cases} cases (x metric), max_abs_err "
+        f"{max_err:.3g}, branches {branches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    del flat_c, flat_s, codes, scale, q
+    _free(torch)
+    return out
 
 
 def reset_counts(kernels):
@@ -333,16 +510,23 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
         by_k[str(k)] = time_ms(
             torch, lambda i, k=k: kg.pipelined_gather(curs[i], combined, k), reps
         )
-    one["ms"], one["ms_by_n_flight"] = by_k["8"], by_k
-    one["wall_ms"] = time_ms(
-        torch, lambda i: kg.pipelined_gather(curs[i], combined, 8), reps,
-        wall=True,
-    )
+    one["ms_by_n_flight"] = by_k
+    # Kernel and index_select in turns (kernel, library, library, kernel):
+    # each number is the mean of its two turns.
+    def kern(i):
+        return kg.pipelined_gather(curs[i], combined, 8)
+
+    def lib(i):
+        return torch.index_select(combined, 0, curs[i])
+
+    turns = [time_ms(torch, fn, reps) for fn in (kern, lib, lib, kern)]
+    one["turns_ms"] = {"kernel": [turns[0], turns[3]],
+                       "index_select": [turns[1], turns[2]]}
+    one["ms"] = (turns[0] + turns[3]) / 2
+    one["library_ms"] = (turns[1] + turns[2]) / 2
+    one["wall_ms"] = time_ms(torch, kern, reps, wall=True)
     one["plain_ms"] = time_ms(
         torch, lambda i: kg.pipelined_gather_plain(curs[i], combined), reps
-    )
-    one["library_ms"] = time_ms(
-        torch, lambda i: torch.index_select(combined, 0, curs[i]), reps
     )
     four["ms"] = time_ms(
         torch, lambda i: kg.pipelined_gather4(curs[i], sep4, 8), reps
@@ -353,6 +537,8 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
         reps,
     )
     four["library_ms"] = None  # no single PyTorch call gathers four tables
+    log(f"row gather in turns (kernel, index_select, index_select, "
+        f"kernel): {', '.join(f'{t:.5f}' for t in turns)} ms")
     log(f"row gather B={b} X={x}: kernel {one['ms']:.4f} ms (wall "
         f"{one['wall_ms']:.4f}; K=4/8/16 "
         f"{by_k['4']:.4f}/{by_k['8']:.4f}/{by_k['16']:.4f}), plain "
@@ -761,11 +947,17 @@ def main() -> int:
             log(f"nvcc {m.LIBRARY.source.name}: "
                 + m.LIBRARY.build_log.strip().replace("\n", "\n[chip_smoke]   "))
 
+    floor = time_ms(torch, lambda i: torch.cuda._sleep(0), 20)
+    log(f"timing floor (an empty kernel, time_ms): {floor:.5f} ms")
     records = {
         "int4": check_float_scorer(torch, dev, "int4"),
         "ternary": check_ternary(torch, dev),
         "int8": check_float_scorer(torch, dev, "int8"),
     }
+    for key, cases in check_ring_cases(torch, dev).items():
+        records[key]["ring_cases"] = cases
+        records[key]["max_abs_err"] = max(records[key]["max_abs_err"],
+                                          cases["max_abs_err"])
     records["gather"], records["gather4"] = check_row_gather(torch, dev)
     profile, gather_launches = run_profiler(torch, dev, kernels)
     records["gather"]["launches"] = gather_launches["pipelined_gather"]
@@ -806,7 +998,7 @@ def main() -> int:
         rows.append(rec)
         if also:
             rows.append({**rec, "name": rec["name"] + "_deep", "replaces": also})
-    print(json.dumps({"profile_hop": profile}))
+    print(json.dumps({"profile_hop": profile, "timing_floor_ms": floor}))
     print(json.dumps({"metrics": metrics}))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -141,9 +141,10 @@ class GraphParams:
 
 
 def make_graph_arrays(
-    params: GraphParams, capacity: int, device="cpu"
+    params: GraphParams, capacity: int, device: torch.device | str
 ) -> GraphArrays:
-    """Allocate zeroed arrays for ``capacity`` node slots on ``device``."""
+    """Allocate zeroed arrays for ``capacity`` node slots on ``device``
+    (required: nothing lands on the CPU unless the caller asks for it)."""
     d, r, w = params.dims, params.r, params.words
     et = params.edge_type
     tern = et is EdgeType.TERNARY

@@ -10,6 +10,11 @@ PyTorch versions on the card.
 ``build_libraries`` starts one nvcc per source, all at once, and waits for
 them together, so that a process that needs every kernel pays for the
 slowest build rather than the sum.
+
+``ring_plan`` is the launch plan of the frontier scorers' persistent
+ring (``csrc/ring.cuh``): grid, stages and branch, from the card's SM count
+and the tensors' sizes and alignment. It is plain Python, so the CPU tests
+reach it.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -65,8 +72,11 @@ class KernelLibrary:
         return CSRC / f"{self.name}.cu"
 
     def library_path(self) -> Path:
+        # Every header under csrc/ is part of the key: a source may include
+        # any of them.
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         key = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.name}_{key}.so"
 
@@ -160,3 +170,76 @@ def launch(lib: KernelLibrary, tensors, ints) -> None:
         )
     if err != 0:
         raise RuntimeError(f"{lib.symbol} launch failed: CUDA error {err}")
+
+
+# The persistent ring of the frontier scorers (csrc/ring.cuh). An H100 SM
+# has 228 KB of shared memory, a block may use 227 KB of it, and each
+# resident block reserves 1 KB; RING_STATIC_BYTES covers the ring's static
+# mbarriers.
+SM_SHARED_BYTES = 233_472
+BLOCK_SHARED_BYTES = 232_448
+RING_STATIC_BYTES = 128
+RING_MAX_STAGES = 4  # ring.cuh's kMaxStages
+
+
+class RingPlan(NamedTuple):
+    grid: int  # persistent blocks: min(B, k * SMs)
+    stages: int  # S, the queries a block has in flight
+    bulk: bool  # 1-D bulk copies; else cp.async by every thread
+    stage_bytes: int
+
+
+def pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def check_stage_fits(stage_bytes: int, what: str) -> None:
+    if stage_bytes > BLOCK_SHARED_BYTES - RING_STATIC_BYTES:
+        raise ValueError(
+            f"{what}: one stage of {stage_bytes} bytes exceeds the "
+            f"{BLOCK_SHARED_BYTES - RING_STATIC_BYTES} bytes of shared memory "
+            "a block may use"
+        )
+
+
+def ring_plan(n_queries: int, sm_count: int, stage_bytes: int, pointers,
+              block_bytes, max_blocks_per_sm: int) -> RingPlan:
+    """Launch plan of a ring scorer for ``n_queries`` >= 1.
+
+    ``stage_bytes`` is one query's stage, ``pointers`` the data addresses
+    of every table and query tensor, ``block_bytes`` the size of each
+    per-node block a bulk copy reads, ``max_blocks_per_sm`` the kernel's
+    ``kBlocksPerSm`` (a power of two). k, the blocks a SM holds, is the
+    most of max_blocks_per_sm, half of it, ... 1 that leaves each block
+    S >= 2 stages (S <= 4); where not even two stages fit, k = 1 and S = 1. The bulk branch needs every pointer
+    16-byte aligned and every block a multiple of 16 bytes (a query row of
+    another size is fetched as the 16-byte window around it); anything else
+    takes the vector branch."""
+    check_stage_fits(stage_bytes, "ring_plan")
+    k = max_blocks_per_sm
+    while True:
+        per_block = min(
+            SM_SHARED_BYTES // k - 1024, BLOCK_SHARED_BYTES
+        ) - RING_STATIC_BYTES
+        stages = min(RING_MAX_STAGES, per_block // stage_bytes)
+        if stages >= 2 or k == 1:
+            break
+        k //= 2
+    bulk = all(p % 16 == 0 for p in pointers) and all(
+        n % 16 == 0 for n in block_bytes
+    )
+    return RingPlan(
+        grid=min(n_queries, k * sm_count), stages=stages, bulk=bulk,
+        stage_bytes=stage_bytes,
+    )
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA card."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

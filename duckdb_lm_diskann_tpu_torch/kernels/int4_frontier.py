@@ -11,7 +11,9 @@ Dispatch follows the tensors, never a switch: tensors on the CPU take the
 plain PyTorch version (gather, ``decode_int4``, ``pairwise_distance``);
 tensors on a CUDA device launch the kernel or raise. The kernel is built
 with nvcc at first use (``kernels/_build.py``) and bound with ctypes
-through a plain C entry point.
+through a plain C entry point. The kernel's launch plan (persistent grid,
+ring stages, bulk or vector branch) is ``_build.ring_plan`` of this call's
+sizes and pointers.
 """
 
 from __future__ import annotations
@@ -23,16 +25,47 @@ import torch
 from ..common.types import MetricType
 from ..ops.distance import pairwise_distance
 from ..ops.quantize import decode_int4
-from ._build import METRIC_CODE, KernelLibrary, check_tensors, launch
+from ._build import (
+    METRIC_CODE,
+    KernelLibrary,
+    RingPlan,
+    check_stage_fits,
+    check_tensors,
+    launch,
+    pad16,
+    ring_plan,
+    sm_count,
+)
 
 LIBRARY = KernelLibrary(
     "int4_frontier", "lmd_int4_frontier_scores",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
-_MAX_SMEM_BYTES = 48 * 1024  # the query row staged in shared memory
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+# The kernel's kBlocksPerSm (csrc/int4_frontier.cu): the most blocks a SM holds.
+BLOCKS_PER_SM = 8
+
+# Kernel launches since the last reset (chip_smoke.py reads and resets it),
+# and the plan of the last launch.
 LAUNCHES = 0
+LAST_PLAN: RingPlan | None = None
+
+
+def stage_bytes(R: int, D: int, DW: int) -> int:
+    """One query's ring stage (csrc/int4_frontier.cu, Layout): the code
+    block, the scales, then the query-row window."""
+    return pad16(R * DW * 4) + pad16(R * 4) + pad16(D * 4) + 16
+
+
+def _launch_plan(cur, queries, codes, scale) -> RingPlan:
+    """The plan a launch on these CUDA tensors takes."""
+    D = queries.shape[1]
+    _, R, DW = codes.shape
+    return ring_plan(
+        cur.shape[0], sm_count(cur.device), stage_bytes(R, D, DW),
+        pointers=[t.data_ptr() for t in (queries, codes, scale)],
+        block_bytes=[R * DW * 4, R * 4], max_blocks_per_sm=BLOCKS_PER_SM,
+    )
 
 
 def int4_frontier_scores_plain(
@@ -64,8 +97,7 @@ def _check(cur, queries, codes, scale, metric) -> torch.device:
         raise ValueError(f"scale shape {tuple(scale.shape)} != {(C, R)}")
     if D > 8 * DW:
         raise ValueError(f"codes of {DW} words do not cover {D} dims")
-    if 8 * DW * 4 > _MAX_SMEM_BYTES:
-        raise ValueError(f"{DW} words per row exceed the staged query limit")
+    check_stage_fits(stage_bytes(R, D, DW), f"{R} rows of {DW} words")
     if metric not in METRIC_CODE:
         raise ValueError(f"Unsupported metric type {metric}")
     if C == 0 and B > 0:
@@ -84,7 +116,7 @@ def int4_frontier_scores(
     """f32[B, R] approximate distances of every cached INT4 neighbor of each
     query's current node. CPU tensors: the plain version. CUDA tensors: the
     kernel, or an exception."""
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if _check(cur, queries, codes, scale, metric).type == "cpu":
         return int4_frontier_scores_plain(
             cur, queries, codes, scale, metric=metric
@@ -92,9 +124,14 @@ def int4_frontier_scores(
     B, D = queries.shape
     C, R, DW = codes.shape
     out = torch.empty((B, R), dtype=torch.float32, device=cur.device)
+    if B == 0:
+        return out
+    plan = _launch_plan(cur, queries, codes, scale)
     launch(
         LIBRARY, (cur, queries, codes, scale, out),
-        (B, D, C, R, DW, METRIC_CODE[metric]),
+        (B, D, C, R, DW, METRIC_CODE[metric], plan.grid, plan.stages,
+         plan.stage_bytes, int(plan.bulk)),
     )
     LAUNCHES += 1
+    LAST_PLAN = plan
     return out

@@ -13,7 +13,8 @@ Scores are integers: the kernel and the plain version agree exactly.
 
 Dispatch follows the tensors, never a switch: CPU tensors take the plain
 PyTorch version (gather, ``ternary_dot``); CUDA tensors launch the kernel or
-raise.
+raise. The kernel's launch plan (persistent grid, ring stages, bulk or
+vector branch) is ``_build.ring_plan`` of this call's sizes and pointers.
 """
 
 from __future__ import annotations
@@ -23,16 +24,45 @@ import ctypes
 import torch
 
 from ..ops.ternary import ternary_dot
-from ._build import KernelLibrary, check_tensors, launch
+from ._build import (
+    KernelLibrary,
+    RingPlan,
+    check_stage_fits,
+    check_tensors,
+    launch,
+    pad16,
+    ring_plan,
+    sm_count,
+)
 
 LIBRARY = KernelLibrary(
     "ternary_frontier", "lmd_ternary_frontier_scores",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
-_MAX_SMEM_BYTES = 48 * 1024  # the two query planes staged in shared memory
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+# The kernel's kBlocksPerSm (csrc/ternary_frontier.cu): the most blocks a SM holds.
+BLOCKS_PER_SM = 4
+
+# Kernel launches since the last reset (chip_smoke.py reads and resets it),
+# and the plan of the last launch.
 LAUNCHES = 0
+LAST_PLAN: RingPlan | None = None
+
+
+def stage_bytes(R: int, W: int) -> int:
+    """One query's ring stage (csrc/ternary_frontier.cu, Layout): the two
+    plane blocks, then the two query-plane windows."""
+    return 2 * pad16(R * W * 4) + 2 * (pad16(W * 4) + 16)
+
+
+def _launch_plan(cur, q_pos, q_neg, edge_pos, edge_neg) -> RingPlan:
+    """The plan a launch on these CUDA tensors takes."""
+    _, R, W = edge_pos.shape
+    return ring_plan(
+        cur.shape[0], sm_count(cur.device), stage_bytes(R, W),
+        pointers=[t.data_ptr() for t in (q_pos, q_neg, edge_pos, edge_neg)],
+        block_bytes=[R * W * 4], max_blocks_per_sm=BLOCKS_PER_SM,
+    )
 
 
 def ternary_frontier_scores_plain(
@@ -68,8 +98,7 @@ def _check(cur, q_pos, q_neg, edge_pos, edge_neg) -> torch.device:
             f"edge planes {tuple(edge_pos.shape)} / {tuple(edge_neg.shape)} "
             f"do not match {W} query words"
         )
-    if 2 * W * 4 > _MAX_SMEM_BYTES:
-        raise ValueError(f"{W} words per plane exceed the staged query limit")
+    check_stage_fits(stage_bytes(R, W), f"{R} rows of {W} words")
     if C == 0 and B > 0:
         raise ValueError("edge plane table is empty")
     return dev
@@ -85,7 +114,7 @@ def ternary_frontier_scores(
     """i32[B, R] ternary scores of every cached neighbor of each query's
     current node. CPU tensors: the plain version. CUDA tensors: the kernel,
     or an exception."""
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if _check(cur, q_pos, q_neg, edge_pos, edge_neg).type == "cpu":
         return ternary_frontier_scores_plain(
             cur, q_pos, q_neg, edge_pos, edge_neg
@@ -93,6 +122,13 @@ def ternary_frontier_scores(
     B, W = q_pos.shape
     C, R, _ = edge_pos.shape
     out = torch.empty((B, R), dtype=torch.int32, device=cur.device)
-    launch(LIBRARY, (cur, q_pos, q_neg, edge_pos, edge_neg, out), (B, C, R, W))
+    if B == 0:
+        return out
+    plan = _launch_plan(cur, q_pos, q_neg, edge_pos, edge_neg)
+    launch(
+        LIBRARY, (cur, q_pos, q_neg, edge_pos, edge_neg, out),
+        (B, C, R, W, plan.grid, plan.stages, plan.stage_bytes, int(plan.bulk)),
+    )
     LAUNCHES += 1
+    LAST_PLAN = plan
     return out

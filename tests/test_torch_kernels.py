@@ -276,6 +276,80 @@ def test_ternary_and_int8_wrappers_reject_bad_inputs(rng):
         )
 
 
+SMS = 132  # an H100 SXM's streaming multiprocessors
+
+
+T4, I8 = ternary_frontier.BLOCKS_PER_SM, int4_frontier.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize(
+    "stage, n_queries, pointers, blocks, most, want",
+    [
+        # TERNARY W=30 (GIST), B=1024: 4 blocks a SM, 3 stages, bulk.
+        (ternary_frontier.stage_bytes(64, 30), 1024, [0, 4096, 16, 32],
+         [64 * 30 * 4], T4, (528, 3, True)),
+        # W=66 (D=2100): a 34 KB stage still gets 3 stages, at 2 blocks a SM.
+        (ternary_frontier.stage_bytes(64, 66), 5000, [0, 16, 32, 48],
+         [64 * 66 * 4], T4, (264, 3, True)),
+        # B=1: one block.
+        (ternary_frontier.stage_bytes(64, 2), 1, [0, 16, 32, 48], [512], T4,
+         (1, 4, True)),
+        # R=5, W=30: a 600-byte plane block takes the vector branch.
+        (ternary_frontier.stage_bytes(5, 30), 7, [0, 16, 32, 48], [600], T4,
+         (7, 4, False)),
+        # INT4 D=128, B=2048 (the headline build): 8 blocks a SM, bulk.
+        (int4_frontier.stage_bytes(64, 128, 16), 2048, [0, 16, 32],
+         [4096, 256], I8, (1056, 4, True)),
+        # A table view 8 bytes off a 16-byte boundary: vector branch.
+        (int4_frontier.stage_bytes(64, 128, 16), 1024, [0, 8, 32],
+         [4096, 256], I8, (1024, 4, False)),
+        # R=13: 52 bytes of scales a node, vector branch.
+        (int4_frontier.stage_bytes(13, 100, 13), 256, [0, 16, 32],
+         [13 * 13 * 4, 13 * 4], I8, (256, 4, False)),
+    ],
+    ids=["ternary_w30", "ternary_w66", "ternary_b1", "ternary_r5",
+         "int4_d128", "int4_misaligned", "int4_r13"],
+)
+def test_ring_plan(stage, n_queries, pointers, blocks, most, want):
+    """grid = min(B, k * SMs) with k <= the kernel's blocks a SM; S >= 2
+    stages where two fit, S * stage within a block's 227 KB and k blocks
+    within a SM's 228 KB; bulk copies only for 16-byte aligned tables and
+    blocks."""
+    plan = _build.ring_plan(n_queries, SMS, stage, pointers, blocks, most)
+    assert (plan.grid, plan.stages, plan.bulk) == want
+    k = next(k for k in (most, most // 2, most // 4, 1)
+             if plan.grid == min(n_queries, k * SMS))
+    assert k * (plan.stages * stage + _build.RING_STATIC_BYTES + 1024) <= (
+        _build.SM_SHARED_BYTES
+    )
+    assert plan.stages >= 2 or 2 * stage > _build.BLOCK_SHARED_BYTES
+    assert plan.stages * stage <= (
+        _build.BLOCK_SHARED_BYTES - _build.RING_STATIC_BYTES
+    )
+    assert plan.stage_bytes == stage
+
+
+def test_ring_plan_at_the_shared_memory_limit():
+    """A stage that fits only once runs with S = 1 at one block a SM; one
+    that does not fit at all is refused, on the CPU too."""
+    limit = _build.BLOCK_SHARED_BYTES - _build.RING_STATIC_BYTES
+    plan = _build.ring_plan(4096, SMS, limit, [0], [16], I8)
+    assert (plan.grid, plan.stages) == (SMS, 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        _build.ring_plan(4096, SMS, limit + 16, [0], [16], T4)
+    edges = torch.zeros((2, 64, 500), dtype=torch.int32)
+    q = torch.zeros((3, 500), dtype=torch.int32)
+    cur = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceeds"):
+        ternary_frontier.ternary_frontier_scores(cur, q, q, edges, edges)
+    codes = torch.zeros((2, 640, 100), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceeds"):
+        int4_frontier.int4_frontier_scores(
+            cur, torch.zeros((3, 800)), codes, torch.zeros((2, 640)),
+            metric=MetricType.L2,
+        )
+
+
 def _point_builds_at(monkeypatch, tmp_path, nvcc):
     for kernel in KERNELS:
         monkeypatch.setattr(kernel.LIBRARY, "_fn", None)
@@ -328,7 +402,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 40, 100])
+@pytest.mark.parametrize("d", [32, 40, 100, 30, 128])
 def test_kernel_matches_plain_on_the_card(cuda_device, d):
     before = int4_frontier.LAUNCHES
     rng = np.random.default_rng(d)
@@ -344,8 +418,8 @@ def test_kernel_matches_plain_on_the_card(cuda_device, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 100, 960, 2100])
 def test_ternary_kernel_equals_plain_on_the_card(cuda_device, d):
-    """W = 2, 4, 30 and 66 words (one lane group per row up to a whole
-    warp, and more words than lanes): scores exactly equal."""
+    """W = 2, 4, 30 and 66 words (lane groups of 1, 2 and 4 lanes a row,
+    one to nine word pairs a lane): scores exactly equal."""
     before = ternary_frontier.LAUNCHES
     rng = np.random.default_rng(d)
     args = _ternary_torch(
@@ -373,6 +447,108 @@ def test_int8_kernel_matches_plain_on_the_card(cuda_device, d):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert int8_frontier.LAUNCHES == before + len(METRICS)
+
+
+def _ring_curs(gen, dev, b, C):
+    """B rows with repeats and out-of-range slots, and the same rows
+    clamped into [0, C) for the plain version (which indexes, and so does
+    not clamp)."""
+    cur = torch.randint(0, C, (b,), dtype=torch.int32, device=dev, generator=gen)
+    cur[1::7] = cur[0]
+    if b > 3:
+        cur[2], cur[3] = -5, C + 9
+    return cur, cur.clamp(0, C - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [5, 13, 64])
+def test_ternary_ring_equals_plain_on_the_card(cuda_device, r):
+    """The persistent ring at B = 1, 7, 1024 and 5000 (many wraps of the
+    ring), W = 2, 4, 30, 66, with repeated and out-of-range rows: scores
+    exactly equal, in the bulk branch where R*W*4 is a multiple of 16, and
+    in the vector branch for a misaligned view (table[1:] of 600-byte
+    blocks, query planes [1:] of 120-byte rows)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r)
+    C = 512
+
+    def planes(shape):
+        p = torch.randint(-(2**31), 2**31, shape, dtype=torch.int32,
+                          device=cuda_device, generator=gen)
+        n = torch.randint(-(2**31), 2**31, shape, dtype=torch.int32,
+                          device=cuda_device, generator=gen)
+        return p, n & ~p
+
+    for w in (2, 4, 30, 66):
+        ep, en = planes((C, r, w))
+        for b in (1, 7, 1024, 5000):
+            qp, qn = planes((b, w))
+            cur, clamped = _ring_curs(gen, cuda_device, b, C)
+            got = ternary_frontier.ternary_frontier_scores(cur, qp, qn, ep, en)
+            plan = ternary_frontier.LAST_PLAN
+            want = ternary_frontier.ternary_frontier_scores_plain(
+                clamped, qp, qn, ep, en)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (w, b, plan)
+            assert plan.bulk == (r * w * 4 % 16 == 0)
+    ep, en = planes((C + 1, 5, 30))
+    qp, qn = planes((1025, 30))
+    views = [t[1:] for t in (qp, qn, ep, en)]
+    cur, clamped = _ring_curs(gen, cuda_device, 1024, C)
+    got = ternary_frontier.ternary_frontier_scores(cur, *views)
+    assert not ternary_frontier.LAST_PLAN.bulk
+    torch.cuda.synchronize()
+    assert torch.equal(
+        got, ternary_frontier.ternary_frontier_scores_plain(clamped, *views))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [5, 13, 64])
+def test_int4_ring_matches_plain_on_the_card(cuda_device, r):
+    """The persistent ring at B = 1, 7, 1024 and 5000, D = 30, 40, 100,
+    128, L2/IP/cosine, with repeated and out-of-range rows: within rtol =
+    atol = 1e-5 (another f32 sum order), in the bulk branch where R % 4 ==
+    0 (odd-sized query rows through their 16-byte windows) and the vector
+    branch otherwise, and for a misaligned view of the tables."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r)
+    C = 512
+
+    def tables(c, d):
+        codes = torch.randint(-(2**31), 2**31, (c, r, (d + 7) // 8),
+                              dtype=torch.int32, device=cuda_device,
+                              generator=gen)
+        scale = 0.05 * torch.rand((c, r), device=cuda_device, generator=gen)
+        scale[:, ::4] = 0.0  # empty edge slots
+        return codes, scale
+
+    for d in (30, 40, 100, 128):
+        codes, scale = tables(C, d)
+        for b in (1, 7, 1024, 5000):
+            q = torch.randn((b, d), device=cuda_device, generator=gen)
+            q[0] = 0.0  # zero query: cosine 1.0
+            cur, clamped = _ring_curs(gen, cuda_device, b, C)
+            for metric in METRICS:
+                got = int4_frontier.int4_frontier_scores(
+                    cur, q, codes, scale, metric=metric)
+                plan = int4_frontier.LAST_PLAN
+                want = int4_frontier.int4_frontier_scores_plain(
+                    clamped, q, codes, scale, metric=metric)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                           msg=f"{d} {b} {metric} {plan}")
+            assert plan.bulk == (r % 4 == 0)
+    # q[1:] of 120-byte rows starts 8 bytes off a 16-byte boundary.
+    codes, scale = tables(C + 1, 30)
+    q = torch.randn((1025, 30), device=cuda_device, generator=gen)
+    cur, clamped = _ring_curs(gen, cuda_device, 1024, C)
+    views = (q[1:], codes[1:], scale[1:])
+    for metric in METRICS:
+        got = int4_frontier.int4_frontier_scores(cur, *views, metric=metric)
+        assert not int4_frontier.LAST_PLAN.bulk
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, int4_frontier.int4_frontier_scores_plain(
+                clamped, *views, metric=metric),
+            rtol=1e-5, atol=1e-5)
 
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -229,7 +229,7 @@ def test_empty_graph_and_unported_paths(rng):
     from duckdb_lm_diskann_tpu_torch.core.graph import make_graph_arrays
 
     params = GraphParams.from_config(_config(8))
-    arrays = make_graph_arrays(params, 16)
+    arrays = make_graph_arrays(params, 16, device="cpu")
     q = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32))
     res = beam_search(arrays, q, -1, params=params, l_search=8, k=3)
     assert (res.topk_slots == -1).all() and torch.isinf(res.topk_dists).all()
