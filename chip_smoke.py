@@ -21,17 +21,21 @@ Phases (each raises on failure, so the script exits non-zero):
    gather of one 1280-word table and of the four SoA tables (128, 64, 64,
    1024 words) at n_flight 4, 8 and 16, a ragged 130-word table, and rows
    above 2^21 of a 1280-word table, exactly equal. Each is timed with CUDA
-   events, every call on a fresh set of rows, beside the least time the
-   card could take for the same work (``bound_ms``) and, for the one-table
-   gather, ``torch.index_select`` (``library_ms``; the two are timed in
-   turns: kernel, library, library, kernel). The two ring kernels (INT4,
-   TERNARY) are also timed at B = 1, 256, 1024 and 2048 with their launch
-   plans (grid, stages, branch), and held against their plain versions over
-   2^20 rows at B = 1, 7, 1024, 5000 and R = 5, 13, 64 (TERNARY at W = 2,
-   4, 30, 66; INT4 at D = 30, 40, 100, 128), with repeated and
-   out-of-range rows and misaligned table views: both the bulk-copy and
-   the vector branch must run. The time of an empty kernel by the same
-   method (``timing_floor_ms``) is printed beside them.
+   events, every call on a fresh set of rows, two ways: each call alone
+   behind a sleep kernel (``ms``) and a train of calls back to back behind
+   one (``train_ms``, what a loop of launches pays a call); beside them the
+   least time the card could take for the same work (``bound_ms``) and,
+   for the one-table gather, ``torch.index_select`` (``library_ms``,
+   ``library_train_ms``; the two are timed in turns: kernel, library,
+   library, kernel). The three ring kernels (INT4, TERNARY, INT8) are also
+   timed at B = 1, 256, 1024 and 2048 with their launch plans (grid,
+   stages, branch), and held against their plain versions over 2^20 rows
+   at B = 1, 7, 1024, 5000 and R = 5, 13, 64 (TERNARY at W = 2, 4, 30, 66;
+   INT4 and INT8 at D = 30, 40, 100, 128, INT8 over every byte value),
+   with zero scales, a zero query, repeated and out-of-range rows and
+   misaligned table views: both the bulk-copy and the vector branch must
+   run. The time of an empty kernel by both methods
+   (``timing_floor_ms``, ``timing_floor_train_ms``) is printed beside them.
 3. The hop profiler (``experiments/profile_hop.py``) at 2^20 rows: the
    knockout rows of the INT4 hop, then the row-gather A/B; its rows go to
    standard output. The row-gather kernel must launch in the A/B.
@@ -115,6 +119,19 @@ def time_ms(torch, fn, n_calls: int, wall: bool = False) -> float:
     return float(np.median(timer(lambda i: fn(3 + i), n_calls)))
 
 
+def train_ms(torch, fn, n_calls: int) -> float:
+    """The card's time per call of a train of ``n_calls`` calls issued back
+    to back behind one sleep kernel (``utils.cuda_timing.device_ms_train``),
+    after a warm-up; fn(i) gets the call index, so the train reads the same
+    fresh rows as ``time_ms``. Each call is charged what a loop of launches
+    pays for it, without the events' cost around a lone call."""
+    from duckdb_lm_diskann_tpu_torch.utils import cuda_timing
+
+    for i in range(3):
+        fn(i)
+    return cuda_timing.device_ms_train(lambda i: fn(3 + i), n_calls)
+
+
 def bound(curs, reps, row_bytes, fixed_bytes, ops):
     """Least time (ms) of the timed calls, median over them: the distinct
     rows each call gathers (``row_bytes`` each) plus the bytes every call
@@ -143,18 +160,20 @@ def plan_of(plan):
 def batch_sweep(torch, dev, gen, mod, name, n_rows, reps, make_queries, call,
                 row_bytes, fixed_bytes_per_query, ops_per_query):
     """Card time of a ring scorer at each of SWEEP_BATCHES on fresh rows of
-    ``n_rows``, beside its bound and the plan it launched with."""
+    ``n_rows`` (lone calls and a train), beside its bound and the plan it
+    launched with."""
     out = {}
     for b in SWEEP_BATCHES:
         queries = make_queries(b)
         curs = _random_curs(torch, dev, gen, n_rows, b, reps)
         ms = time_ms(torch, lambda i: call(curs[i], queries), reps)
+        train = train_ms(torch, lambda i: call(curs[i], queries), reps)
         bound_ms, _ = bound(curs, reps, row_bytes, b * fixed_bytes_per_query,
                             b * ops_per_query)
-        out[str(b)] = {"ms": ms, "bound_ms": bound_ms,
+        out[str(b)] = {"ms": ms, "train_ms": train, "bound_ms": bound_ms,
                        "plan": plan_of(mod.LAST_PLAN)}
-        log(f"{name} B={b}: kernel {ms:.5f} ms, bound {bound_ms:.5f} ms, "
-            f"plan {out[str(b)]['plan']}")
+        log(f"{name} B={b}: kernel {ms:.5f} ms (train {train:.5f}), bound "
+            f"{bound_ms:.5f} ms, plan {out[str(b)]['plan']}")
     return out
 
 
@@ -198,7 +217,7 @@ def check_float_scorer(torch, dev, codec, n_rows=1 << 20, r=64, b=1024,
             row_bytes, scale_max = r * (4 * width + 4), 0.05
         else:
             codes = torch.randint(
-                -127, 128, (n_rows, r, d), dtype=torch.int8, device=dev,
+                -128, 128, (n_rows, r, d), dtype=torch.int8, device=dev,
                 generator=gen,
             )
             codes[:, ::8] = 0
@@ -228,30 +247,29 @@ def check_float_scorer(torch, dev, codec, n_rows=1 << 20, r=64, b=1024,
                     ),
                     reps,
                 )
-            rec["wall_ms"] = time_ms(
-                torch,
-                lambda i: kernel(
-                    curs[i], queries, codes, scale, metric=MetricType.L2
-                ),
-                reps, wall=True,
-            )
+            def l2(i):
+                return kernel(curs[i], queries, codes, scale,
+                              metric=MetricType.L2)
+
+            rec["train_ms"] = train_ms(torch, l2, reps)
+            rec["wall_ms"] = time_ms(torch, l2, reps, wall=True)
             rec["bound_ms"], rec["bound_by"] = bound(
                 curs, reps, row_bytes=row_bytes,
                 fixed_bytes=b * (4 * d + 4 + 4 * r), ops=4 * b * r * d,
             )
-            log(f"{codec} B={b} R={r} D={d} L2: kernel {rec['ms']:.4f} ms "
-                f"(wall {rec['wall_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, "
-                f"bound {rec['bound_ms']:.5f} ms")
-            if codec == "int4":  # the redesigned ring kernel
-                rec["plan"] = plan_of(mod.LAST_PLAN)
-                rec["by_batch"] = batch_sweep(
-                    torch, dev, gen, mod, "int4 D=128 L2", n_rows, reps,
-                    lambda nb: 0.3 * torch.randn((nb, d), device=dev,
-                                                 generator=gen),
-                    lambda cur, q: kernel(cur, q, codes, scale,
-                                          metric=MetricType.L2),
-                    row_bytes, 4 * d + 4 + 4 * r, 4 * r * d,
-                )
+            rec["plan"] = plan_of(mod.LAST_PLAN)
+            log(f"{codec} B={b} R={r} D={d} L2: kernel {rec['ms']:.5f} ms "
+                f"(train {rec['train_ms']:.5f}, wall {rec['wall_ms']:.4f}), "
+                f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
+                f"ms, plan {rec['plan']}")
+            rec["by_batch"] = batch_sweep(
+                torch, dev, gen, mod, f"{codec} D=128 L2", n_rows, reps,
+                lambda nb: 0.3 * torch.randn((nb, d), device=dev,
+                                             generator=gen),
+                lambda cur, q: kernel(cur, q, codes, scale,
+                                      metric=MetricType.L2),
+                row_bytes, 4 * d + 4 + 4 * r, 4 * r * d,
+            )
         del codes, scale, queries, curs
         _free(torch)
     pallas = "duckdb_lm_diskann_tpu/experiments/pallas_kernels.py"
@@ -306,17 +324,17 @@ def check_ternary(torch, dev, n_rows=1 << 20, r=64, b=1024, reps=20):
                 rec[name] = time_ms(
                     torch, lambda i, fn=fn: fn(curs[i], qp, qn, ep, en), reps
                 )
-            rec["wall_ms"] = time_ms(
-                torch,
-                lambda i: kt.ternary_frontier_scores(curs[i], qp, qn, ep, en),
-                reps, wall=True,
-            )
+            def scores(i):
+                return kt.ternary_frontier_scores(curs[i], qp, qn, ep, en)
+
+            rec["train_ms"] = train_ms(torch, scores, reps)
+            rec["wall_ms"] = time_ms(torch, scores, reps, wall=True)
             rec["bound_ms"], rec["bound_by"] = bound(
                 curs, reps, row_bytes=r * w * 4 * 2,
                 fixed_bytes=b * (4 * 2 * w + 4 + 4 * r), ops=12 * b * r * w,
             )
-            log(f"ternary B={b} R={r} W={w}: kernel {rec['ms']:.4f} ms "
-                f"(wall {rec['wall_ms']:.4f}), "
+            log(f"ternary B={b} R={r} W={w}: kernel {rec['ms']:.5f} ms "
+                f"(train {rec['train_ms']:.5f}, wall {rec['wall_ms']:.4f}), "
                 f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms")
             rec["plan"] = plan_of(kt.LAST_PLAN)
 
@@ -352,15 +370,14 @@ RING_ROWS = (5, 13, 64)  # R = 5 and 13 take the vector branch
 
 
 def check_ring_cases(torch, dev, n_rows=1 << 20):
-    """The two ring kernels against their plain versions over 2^20 rows at
-    every B of RING_BATCHES and R of RING_ROWS: TERNARY at W = 2, 4, 30, 66
-    exactly, INT4 at D = 30, 40, 100, 128 for L2/IP/cosine to rtol = atol
-    = 1e-5; rows repeat and two lie out of range (the plain version gets
-    them clamped: it indexes); a view of each table one word off a 16-byte
-    boundary takes the vector branch. Both branches must run. Returns
-    {"ternary": ..., "int4": ...} with the largest error and the plans."""
-    from duckdb_lm_diskann_tpu_torch.common.types import MetricType
-    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
+    """The three ring kernels against their plain versions over 2^20 rows
+    at every B of RING_BATCHES and R of RING_ROWS: TERNARY at W = 2, 4, 30,
+    66 exactly, INT4 and INT8 at D = 30, 40, 100, 128 for L2/IP/cosine to
+    rtol = atol = 1e-5 (``float_ring_cases``); rows repeat and two lie out
+    of range (the plain version gets them clamped: it indexes); a view of
+    each table off a 16-byte boundary takes the vector branch. Both
+    branches must run. Returns {"ternary": ..., "int4": ..., "int8": ...}
+    with the cases, largest error and branches."""
     from duckdb_lm_diskann_tpu_torch.kernels import ternary_frontier as kt
 
     gen = torch.Generator(device=dev).manual_seed(0x121A6)
@@ -418,49 +435,95 @@ def check_ring_cases(torch, dev, n_rows=1 << 20):
     del flat_p, flat_n, ep, en, q
     _free(torch)
 
+    for codec in ("int4", "int8"):
+        out[codec] = float_ring_cases(torch, dev, gen, codec, n_rows, curs, view)
+    return out
+
+
+def float_ring_cases(torch, dev, gen, codec, n_rows, curs, view):
+    """INT4 (D = 30, 40, 100, 128 in random planar words: every nibble) or
+    INT8 (the same D, every byte value, -128 included) over every R of
+    RING_ROWS and B of RING_BATCHES, for L2/IP/cosine, to rtol = atol =
+    1e-5: a quarter of the scales are 0 (empty slots), query 0 is zero
+    (cosine 1.0), rows repeat and two lie out of range; then a view of each
+    table off its 16-byte boundary (INT8: a byte off) takes the vector
+    branch; INT8 also at R=128, D=3072 and R=13, D=12288, nodes too large
+    for two stages, scored in pieces. Both branches must run. Returns the
+    codec's cases, largest error and branches."""
+    from duckdb_lm_diskann_tpu_torch.common.types import MetricType
+    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
+    from duckdb_lm_diskann_tpu_torch.kernels import int8_frontier as k8
+
     t0 = time.perf_counter()
-    flat_c = words(n_rows * 64 * 16 + 1)
+    if codec == "int4":
+        mod, score, plain = (k4, k4.int4_frontier_scores,
+                             k4.int4_frontier_scores_plain)
+        flat_c = torch.randint(-(2**31), 2**31, (n_rows * 64 * 16 + 1,),
+                               dtype=torch.int32, device=dev, generator=gen)
+
+        def codes_of(r, d, off=0):
+            return view(flat_c, (n_rows, r, (d + 7) // 8), off)
+    else:
+        mod, score, plain = (k8, k8.int8_frontier_scores,
+                             k8.int8_frontier_scores_plain)
+        flat_c = torch.randint(-128, 128, (n_rows * 64 * 128 + 1,),
+                               dtype=torch.int8, device=dev, generator=gen)
+
+        def codes_of(r, d, off=0):
+            return view(flat_c, (n_rows, r, d), off)
     flat_s = 0.05 * torch.rand(n_rows * 64 + 1, device=dev, generator=gen)
+    if codec == "int8":
+        flat_s *= 0.1  # codes up to 128, not 8
     flat_s[::4] = 0.0  # empty edge slots
     plans, cases, max_err = set(), 0, 0.0
 
     def hold(cur, clamped, q, codes, scale, what):
         nonlocal cases, max_err
         for metric in (MetricType.L2, MetricType.IP, MetricType.COSINE):
-            got = k4.int4_frontier_scores(cur, q, codes, scale, metric=metric)
-            plans.add(tuple(plan_of(k4.LAST_PLAN).values()))
-            want = k4.int4_frontier_scores_plain(clamped, q, codes, scale,
-                                                 metric=metric)
+            got = score(cur, q, codes, scale, metric=metric)
+            plans.add(tuple(plan_of(mod.LAST_PLAN).values()))
+            want = plain(clamped, q, codes, scale, metric=metric)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
-                raise AssertionError(f"int4 ring output not finite: {what}")
+                raise AssertionError(f"{codec} ring output not finite: {what}")
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
-                                       msg=lambda m: f"int4 ring {what}: {m}")
+                                       msg=lambda m: f"{codec} ring {what}: {m}")
             max_err = max(max_err, float((got - want).abs().max()))
             cases += 1
 
     for r in RING_ROWS:
         for d in (30, 40, 100, 128):
-            codes = view(flat_c, (n_rows, r, (d + 7) // 8))
-            scale = view(flat_s, (n_rows, r))
+            codes, scale = codes_of(r, d), view(flat_s, (n_rows, r))
             for b in RING_BATCHES:
                 q = 0.3 * torch.randn((b, d), device=dev, generator=gen)
                 q[0] = 0.0  # zero query: cosine 1.0
                 hold(*curs(b), q, codes, scale, f"R={r} D={d} B={b}")
     q = 0.3 * torch.randn((1025, 30), device=dev, generator=gen)
-    hold(*curs(1024), q[1:], view(flat_c, (n_rows, 5, 4), off=1),
+    hold(*curs(1024), q[1:], codes_of(5, 30, off=1),
          view(flat_s, (n_rows, 5), off=1), "misaligned views")
+    if codec == "int8":  # nodes scored in pieces of stage_rows(R, D) rows
+        for r, d in ((128, 3072), (13, 12288)):
+            n = min(n_rows, 4096)
+            codes = torch.randint(-128, 128, (n, r, d), dtype=torch.int8,
+                                  device=dev, generator=gen)
+            scale = 0.002 * torch.rand((n, r), device=dev, generator=gen)
+            scale[:, ::4] = 0.0
+            for b in RING_BATCHES[1:3]:  # 7, 1024
+                q = 0.3 * torch.randn((b, d), device=dev, generator=gen)
+                cur = torch.randint(-2, n + 2, (b,), dtype=torch.int32,
+                                    device=dev, generator=gen)
+                hold(cur, cur.clamp(0, n - 1), q, codes, scale,
+                     f"R={r} D={d} B={b} in pieces of "
+                     f"{k8.stage_rows(r, d)} rows")
     branches = sorted({p[2] for p in plans})
     if branches != ["bulk", "vector"]:
-        raise AssertionError(f"int4 ring cases ran branches {branches}")
-    out["int4"] = {"cases": cases, "max_abs_err": max_err,
-                   "branches": branches}
-    log(f"int4 ring == plain: {cases} cases (x metric), max_abs_err "
+        raise AssertionError(f"{codec} ring cases ran branches {branches}")
+    log(f"{codec} ring == plain: {cases} cases (x metric), max_abs_err "
         f"{max_err:.3g}, branches {branches}, "
         f"{time.perf_counter() - t0:.1f} s")
     del flat_c, flat_s, codes, scale, q
     _free(torch)
-    return out
+    return {"cases": cases, "max_abs_err": max_err, "branches": branches}
 
 
 def reset_counts(kernels):
@@ -524,11 +587,19 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
                        "index_select": [turns[1], turns[2]]}
     one["ms"] = (turns[0] + turns[3]) / 2
     one["library_ms"] = (turns[1] + turns[2]) / 2
+    trains = [train_ms(torch, fn, reps) for fn in (kern, lib, lib, kern)]
+    one["train_turns_ms"] = {"kernel": [trains[0], trains[3]],
+                             "index_select": [trains[1], trains[2]]}
+    one["train_ms"] = (trains[0] + trains[3]) / 2
+    one["library_train_ms"] = (trains[1] + trains[2]) / 2
     one["wall_ms"] = time_ms(torch, kern, reps, wall=True)
     one["plain_ms"] = time_ms(
         torch, lambda i: kg.pipelined_gather_plain(curs[i], combined), reps
     )
     four["ms"] = time_ms(
+        torch, lambda i: kg.pipelined_gather4(curs[i], sep4, 8), reps
+    )
+    four["train_ms"] = train_ms(
         torch, lambda i: kg.pipelined_gather4(curs[i], sep4, 8), reps
     )
     four["plain_ms"] = time_ms(
@@ -538,13 +609,15 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
     )
     four["library_ms"] = None  # no single PyTorch call gathers four tables
     log(f"row gather in turns (kernel, index_select, index_select, "
-        f"kernel): {', '.join(f'{t:.5f}' for t in turns)} ms")
-    log(f"row gather B={b} X={x}: kernel {one['ms']:.4f} ms (wall "
-        f"{one['wall_ms']:.4f}; K=4/8/16 "
+        f"kernel): {', '.join(f'{t:.5f}' for t in turns)} ms; trains "
+        f"{', '.join(f'{t:.5f}' for t in trains)} ms")
+    log(f"row gather B={b} X={x}: kernel {one['ms']:.5f} ms (train "
+        f"{one['train_ms']:.5f}, wall {one['wall_ms']:.4f}; K=4/8/16 "
         f"{by_k['4']:.4f}/{by_k['8']:.4f}/{by_k['16']:.4f}), plain "
         f"{one['plain_ms']:.4f} ms, index_select {one['library_ms']:.4f} ms, "
         f"bound {one['bound_ms']:.5f} ms; four tables: kernel "
-        f"{four['ms']:.4f} ms, plain {four['plain_ms']:.4f} ms")
+        f"{four['ms']:.5f} ms (train {four['train_ms']:.5f}), plain "
+        f"{four['plain_ms']:.4f} ms")
     del sep4, combined
     _free(torch)
 
@@ -948,7 +1021,9 @@ def main() -> int:
                 + m.LIBRARY.build_log.strip().replace("\n", "\n[chip_smoke]   "))
 
     floor = time_ms(torch, lambda i: torch.cuda._sleep(0), 20)
-    log(f"timing floor (an empty kernel, time_ms): {floor:.5f} ms")
+    floor_train = train_ms(torch, lambda i: torch.cuda._sleep(0), 20)
+    log(f"timing floor (an empty kernel): {floor:.5f} ms by time_ms, "
+        f"{floor_train:.5f} ms by train_ms")
     records = {
         "int4": check_float_scorer(torch, dev, "int4"),
         "ternary": check_ternary(torch, dev),
@@ -998,7 +1073,8 @@ def main() -> int:
         rows.append(rec)
         if also:
             rows.append({**rec, "name": rec["name"] + "_deep", "replaces": also})
-    print(json.dumps({"profile_hop": profile, "timing_floor_ms": floor}))
+    print(json.dumps({"profile_hop": profile, "timing_floor_ms": floor,
+                      "timing_floor_train_ms": floor_train}))
     print(json.dumps({"metrics": metrics}))
     print(card)
     print(json.dumps({"kernels": rows}))

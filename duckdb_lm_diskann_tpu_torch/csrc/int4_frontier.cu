@@ -53,10 +53,11 @@
 // write a query's R distances as one contiguous run. Node offsets are
 // 64-bit.
 //
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.8; KernelLibrary.build_log): 62-64
-// registers for row_full (L2 62, IP 63, cosine 64: at the cap that
-// __launch_bounds__(128, 8) sets) and 40 for row_any, 0 bytes of spill
-// stores and loads, 128 bytes of static shared memory (the mbarriers).
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8; KernelLibrary.build_log): 63
+// registers for row_full (every metric; the cap that
+// __launch_bounds__(128, 8) sets is 64) and 40 for row_any, 0 bytes of
+// spill stores and loads, 128 bytes of static shared memory (the
+// mbarriers).
 
 #include "ring.cuh"
 

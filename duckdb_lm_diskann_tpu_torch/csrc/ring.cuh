@@ -1,10 +1,13 @@
 // A ring of shared-memory stages for the frontier scorers (sm_90a): each
-// persistent block walks the queries b = blockIdx.x, b += gridDim.x and keeps
-// the next S-1 queries' rows in flight while it scores the current one.
+// persistent block walks the items i = blockIdx.x, i += gridDim.x and keeps
+// the next S-1 items' rows in flight while it scores the current one. An
+// item is a query, or, where a scorer splits each node's block into
+// `chunks` pieces (a block too large for a stage), piece i % chunks of
+// query i / chunks.
 //
-// A scorer describes one query's stage as a few copies (a node's contiguous
-// code block, its scales, the query row) and scores a stage once it has
-// landed. Two branches move the bytes:
+// A scorer describes one item's stage as a few copies (a node's contiguous
+// code block or a piece of it, its scales, the query row) and scores a
+// stage once it has landed. Two branches move the bytes:
 //
 // - bulk: one thread arms the stage's full mbarrier with the byte count
 //   (arrive.expect_tx) and issues one 1-D bulk copy per region
@@ -18,7 +21,9 @@
 // - vector: every thread issues cp.async copies of 16 bytes where the
 //   region allows it and of 4 bytes otherwise, one commit group per stage,
 //   all of a query's loads issued before any is used (a ragged R, a
-//   misaligned view of a table).
+//   misaligned view of a table); a region that is not even 4-byte aligned
+//   (an INT8 block of R*D bytes that is not a multiple of 4, a view a byte
+//   off) is copied byte by byte with plain loads.
 //
 // A stage is refilled only after __syncthreads (every thread has finished
 // reading it) and, in the bulk branch, fence.proxy.async.shared::cta, so the
@@ -130,7 +135,9 @@ __device__ __forceinline__ void issue_bulk(const Job& job, unsigned char* stage,
 }
 
 // Vector branch, every thread: its share of each region (16-byte units where
-// both ends are 16-byte aligned and the size a multiple of 16, else words).
+// both ends are 16-byte aligned and the size a multiple of 16, else words
+// where they are 4-byte aligned, else bytes by plain loads and stores,
+// which the wait's __syncthreads publishes with the stage).
 template <int THREADS, class Job>
 __device__ __forceinline__ void issue_vector(const Job& job, unsigned char* stage, int b,
                                              int node) {
@@ -139,34 +146,39 @@ __device__ __forceinline__ void issue_vector(const Job& job, unsigned char* stag
   for (int k = 0; k < n; ++k) {
     unsigned char* dst = stage + c[k].dst;
     const char* src = c[k].src;
-    if (((reinterpret_cast<uintptr_t>(src) | c[k].dst | c[k].bytes) & 15) == 0) {
+    const uint32_t ends = (uint32_t)reinterpret_cast<uintptr_t>(src) | c[k].dst | c[k].bytes;
+    if ((ends & 15) == 0) {
       for (uint32_t o = 16 * threadIdx.x; o < c[k].bytes; o += 16 * THREADS)
         cp_async16(dst + o, src + o);
-    } else {
+    } else if ((ends & 3) == 0) {
       for (uint32_t o = 4 * threadIdx.x; o < c[k].bytes; o += 4 * THREADS)
         cp_async4(dst + o, src + o);
+    } else {
+      for (uint32_t o = threadIdx.x; o < c[k].bytes; o += THREADS) dst[o] = src[o];
     }
   }
 }
 
-// The persistent loop. `job` provides
+// The persistent loop over B * chunks items (chunks = 1: item b is query
+// b). `job` provides
 //   bool bulk                                   the branch (uniform)
-//   int copies(int b, int node, Copy* out)      the stage's regions
-//   void compute(const unsigned char* stage, int b)   score, write out
-// cur is clamped into [0, C) here. Every thread of the block (THREADS of
-// them) calls this.
+//   int copies(int item, int node, Copy* out)   the stage's regions
+//   void compute(const unsigned char* stage, int item)   score, write out
+// cur is read for query item / chunks and clamped into [0, C) here. Every
+// thread of the block (THREADS of them) calls this.
 template <int THREADS, class Job>
 __device__ __forceinline__ void run(const Job& job, const int32_t* __restrict__ cur, int B,
-                                    int C, int S, uint32_t stage_bytes) {
+                                    int C, int S, uint32_t stage_bytes, int chunks = 1) {
   const bool bulk = job.bulk;
   extern __shared__ __align__(128) unsigned char ring_smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   const int tid = threadIdx.x;
+  const int n_items = B * chunks;
   const int n_mine =
-      (int)blockIdx.x < B ? (B - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+      (int)blockIdx.x < n_items ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   auto query = [&](int i) { return (int)blockIdx.x + i * (int)gridDim.x; };
-  auto node_of = [&](int b) {
-    const int n = cur[b];
+  auto node_of = [&](int item) {
+    const int n = cur[chunks == 1 ? item : item / chunks];
     return n < 0 ? 0 : (n >= C ? C - 1 : n);
   };
   auto stage = [&](int s) { return ring_smem + (size_t)s * stage_bytes; };
@@ -177,7 +189,7 @@ __device__ __forceinline__ void run(const Job& job, const int32_t* __restrict__ 
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    // Lanes 0..S-1 read their query's cur together and fill one stage each.
+    // Lanes 0..S-1 read their item's cur together and fill one stage each.
     if (tid < S && tid < n_mine) {
       const int b = query(tid);
       issue_bulk(job, stage(tid), b, node_of(b), &full[tid]);
@@ -199,7 +211,7 @@ __device__ __forceinline__ void run(const Job& job, const int32_t* __restrict__ 
   for (int i = 0; i < n_mine; ++i) {
     const int s = i % S;
     const bool refill = i + S < n_mine;
-    // The refill's cur is read now: its latency hides behind this query.
+    // The refill's cur is read now: its latency hides behind this item.
     int next = 0;
     if (refill && (!bulk || tid == 0)) next = node_of(query(i + S));
     if (bulk) {

@@ -46,7 +46,7 @@
 // Node offsets are 64-bit (node * R * W * 4 passes 2^31 in the GIST table).
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8; KernelLibrary.build_log): 40
-// registers (word pairs, W even) and 48 (single words), 0 bytes of spill
+// registers (word pairs, W even, and single words), 0 bytes of spill
 // stores and loads, 128 bytes of static shared memory (the mbarriers);
 // __launch_bounds__(256, 4) caps registers at 64.
 

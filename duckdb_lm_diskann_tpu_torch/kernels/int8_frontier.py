@@ -8,7 +8,10 @@ is the port of the TPU kernel ``int8_frontier_scores`` in
 
 Dispatch follows the tensors, never a switch: CPU tensors take the plain
 PyTorch version (gather, ``decode_int8``, ``pairwise_distance``); CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel or raise. The kernel's launch plan (persistent
+grid, ring stages, bulk or vector branch) is ``_build.ring_plan`` of this
+call's sizes and pointers; a node's R x D code block too large for two
+stages of a block is scored in pieces of ``stage_rows`` rows.
 """
 
 from __future__ import annotations
@@ -20,16 +23,66 @@ import torch
 from ..common.types import MetricType
 from ..ops.distance import pairwise_distance
 from ..ops.quantize import decode_int8
-from ._build import METRIC_CODE, KernelLibrary, check_tensors, launch
-
-LIBRARY = KernelLibrary(
-    "int8_frontier", "lmd_int8_frontier_scores",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+from ._build import (
+    BLOCK_SHARED_BYTES,
+    METRIC_CODE,
+    RING_STATIC_BYTES,
+    KernelLibrary,
+    RingPlan,
+    check_tensors,
+    launch,
+    pad16,
+    ring_plan,
+    sm_count,
 )
-_MAX_SMEM_BYTES = 48 * 1024  # the query row staged in shared memory
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+LIBRARY = KernelLibrary("int8_frontier", "lmd_int8_frontier_scores", ARGTYPES)
+
+# The kernel's kBlocksPerSm (csrc/int8_frontier.cu): the most blocks a SM holds.
+BLOCKS_PER_SM = 8
+
+# Kernel launches since the last reset (chip_smoke.py reads and resets it),
+# and the plan of the last launch.
 LAUNCHES = 0
+LAST_PLAN: RingPlan | None = None
+
+
+def stage_bytes(rows: int, D: int) -> int:
+    """A ring stage of ``rows`` rows of a node (csrc/int8_frontier.cu,
+    Layout): the codes, the scales, then the query-row window."""
+    return pad16(rows * D) + pad16(rows * 4) + pad16(D * 4) + 16
+
+
+def stage_rows(R: int, D: int) -> int:
+    """Rows of a node's block one stage holds: all R where two stages fit
+    a block's shared memory; else the most that do (from 4 on a multiple
+    of 4, so that the pieces keep 16-byte scale blocks), at least 1."""
+    room = (BLOCK_SHARED_BYTES - RING_STATIC_BYTES) // 2
+    if stage_bytes(R, D) <= room:
+        return R
+    rows = 1
+    while rows < R and stage_bytes(rows + 1, D) <= room:
+        rows += 1
+    return rows if rows < 4 else rows // 4 * 4
+
+
+def _launch_plan(cur, queries, codes, scale) -> RingPlan:
+    """The plan a launch on these CUDA tensors takes; raises ValueError
+    where not even one row of a node and the query fit a stage."""
+    B, D = queries.shape
+    _, R, _ = codes.shape
+    rows = stage_rows(R, D)
+    last = R - (R - 1) // rows * rows  # rows of the node's last piece
+    items = B * -(-R // rows)  # (query, piece) pairs
+    if items >= 2**31:
+        raise ValueError(f"{B} queries in pieces of {rows} of {R} rows")
+    return ring_plan(
+        items, sm_count(cur.device), stage_bytes(rows, D),
+        pointers=[t.data_ptr() for t in (queries, codes, scale)],
+        block_bytes=[R * D, R * 4, rows * D, rows * 4, last * D, last * 4],
+        max_blocks_per_sm=BLOCKS_PER_SM,
+    )
 
 
 def int8_frontier_scores_plain(
@@ -61,8 +114,6 @@ def _check(cur, queries, codes, scale, metric) -> torch.device:
         raise ValueError(f"codes of {CD} dims for queries of {D}")
     if tuple(scale.shape) != (C, R):
         raise ValueError(f"scale shape {tuple(scale.shape)} != {(C, R)}")
-    if (D + 3) // 4 * 16 > _MAX_SMEM_BYTES:
-        raise ValueError(f"{D} dims exceed the staged query limit")
     if metric not in METRIC_CODE:
         raise ValueError(f"Unsupported metric type {metric}")
     if C == 0 and B > 0:
@@ -81,7 +132,7 @@ def int8_frontier_scores(
     """f32[B, R] approximate distances of every cached INT8 neighbor of each
     query's current node. CPU tensors: the plain version. CUDA tensors: the
     kernel, or an exception."""
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if _check(cur, queries, codes, scale, metric).type == "cpu":
         return int8_frontier_scores_plain(
             cur, queries, codes, scale, metric=metric
@@ -89,9 +140,14 @@ def int8_frontier_scores(
     B, D = queries.shape
     C, R, _ = codes.shape
     out = torch.empty((B, R), dtype=torch.float32, device=cur.device)
+    if B == 0:
+        return out
+    plan = _launch_plan(cur, queries, codes, scale)
     launch(
         LIBRARY, (cur, queries, codes, scale, out),
-        (B, D, C, R, METRIC_CODE[metric]),
+        (B, D, C, R, METRIC_CODE[metric], stage_rows(R, D), plan.grid,
+         plan.stages, plan.stage_bytes, int(plan.bulk)),
     )
     LAUNCHES += 1
+    LAST_PLAN = plan
     return out

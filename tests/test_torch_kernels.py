@@ -280,6 +280,7 @@ SMS = 132  # an H100 SXM's streaming multiprocessors
 
 
 T4, I8 = ternary_frontier.BLOCKS_PER_SM, int4_frontier.BLOCKS_PER_SM
+B8 = int8_frontier.BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize(
@@ -306,9 +307,26 @@ T4, I8 = ternary_frontier.BLOCKS_PER_SM, int4_frontier.BLOCKS_PER_SM
         # R=13: 52 bytes of scales a node, vector branch.
         (int4_frontier.stage_bytes(13, 100, 13), 256, [0, 16, 32],
          [13 * 13 * 4, 13 * 4], I8, (256, 4, False)),
+        # INT8 D=128 (the L2 default), B=1024: an 8,976-byte stage, 8
+        # blocks a SM with 3 stages each, bulk.
+        (int8_frontier.stage_bytes(64, 128), 1024, [0, 16, 32],
+         [8192, 256], B8, (1024, 3, True)),
+        # B=2048: the grid stops at 8 blocks a SM.
+        (int8_frontier.stage_bytes(64, 128), 2048, [0, 16, 32],
+         [8192, 256], B8, (1056, 3, True)),
+        # A code table a byte off a 16-byte boundary: vector branch.
+        (int8_frontier.stage_bytes(64, 128), 1024, [0, 1, 32],
+         [8192, 256], B8, (1024, 3, False)),
+        # R=13, D=30: 390-byte code blocks, vector branch.
+        (int8_frontier.stage_bytes(13, 30), 7, [0, 16, 32], [390, 52], B8,
+         (7, 4, False)),
+        # D=960: a 65,552-byte stage takes one block a SM and 3 stages.
+        (int8_frontier.stage_bytes(64, 960), 1024, [0, 16, 32],
+         [64 * 960, 256], B8, (132, 3, True)),
     ],
     ids=["ternary_w30", "ternary_w66", "ternary_b1", "ternary_r5",
-         "int4_d128", "int4_misaligned", "int4_r13"],
+         "int4_d128", "int4_misaligned", "int4_r13", "int8_d128",
+         "int8_d128_b2048", "int8_misaligned", "int8_r13_d30", "int8_d960"],
 )
 def test_ring_plan(stage, n_queries, pointers, blocks, most, want):
     """grid = min(B, k * SMs) with k <= the kernel's blocks a SM; S >= 2
@@ -348,6 +366,52 @@ def test_ring_plan_at_the_shared_memory_limit():
             cur, torch.zeros((3, 800)), codes, torch.zeros((2, 640)),
             metric=MetricType.L2,
         )
+
+
+def test_int8_stage_sizes_and_pieces_on_the_cpu():
+    """INT8's stage is [rows*D codes][rows scales][query window], each
+    16-byte aligned (8,976 bytes for a whole node at R=64, D=128). A node
+    too large for two stages of a block is scored in pieces of
+    ``stage_rows`` rows, so every R keeps working up to D = 12,288 and
+    beyond; only a stage that not even one row fits is refused, by the
+    CUDA path's plan. The CPU path has no such limit."""
+    assert int8_frontier.stage_bytes(64, 128) == 8192 + 256 + 512 + 16
+    assert int8_frontier.stage_bytes(13, 30) == 400 + 64 + 128 + 16
+    limit = _build.BLOCK_SHARED_BYTES - _build.RING_STATIC_BYTES
+    rows = int8_frontier.stage_rows
+    assert rows(64, 128) == rows(64, 960) == 64  # whole nodes
+    assert rows(5, 12288) == 5
+    # Pieces: R=128, D=3072 in 4 of 32 rows; R=64, D=4096 in 24+24+16;
+    # R=13, D=12288 in 4+4+4+1 (a multiple of 4 from 4 on).
+    assert (rows(128, 3072), rows(64, 4096), rows(13, 12288)) == (32, 24, 4)
+    for r in (5, 13, 64, 128, 256):
+        for d in (3072, 4096, 12288):
+            n = rows(r, d)
+            assert 1 <= n <= r and 2 * int8_frontier.stage_bytes(n, d) <= limit
+            plan = _build.ring_plan(1024 * -(-r // n), SMS,
+                                    int8_frontier.stage_bytes(n, d), [0],
+                                    [r * d, r * 4, n * d, n * 4], B8)
+            assert plan.stages >= 2, (r, d, plan)
+    # One row and the query fit once at D = 46,000, never at D = 47,000.
+    assert rows(64, 46000) == 1
+    plan = _build.ring_plan(64, SMS, int8_frontier.stage_bytes(1, 46000),
+                            [0], [46000, 4], B8)
+    assert (plan.grid, plan.stages, plan.bulk) == (64, 1, False)
+    with pytest.raises(ValueError, match="exceeds"):
+        _build.ring_plan(64, SMS, int8_frontier.stage_bytes(1, 47000), [0],
+                         [47000, 4], B8)
+    # The CPU path at R=64, D=4096 against float64 numpy.
+    rng = np.random.default_rng(4096)
+    codes = rng.integers(-128, 128, (3, 64, 4096), dtype=np.int8)
+    scale = (0.005 * rng.random((3, 64))).astype(np.float32)
+    q = (0.3 * rng.standard_normal((2, 4096))).astype(np.float32)
+    cur = np.array([2, 0], dtype=np.int32)
+    got = int8_frontier.int8_frontier_scores(
+        torch.from_numpy(cur), torch.from_numpy(q), torch.from_numpy(codes),
+        torch.from_numpy(scale), metric=MetricType.L2)
+    v = codes[cur].astype(np.float64) * scale[cur][..., None]
+    want = np.sqrt(((q[:, None, :].astype(np.float64) - v) ** 2).sum(-1))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def _point_builds_at(monkeypatch, tmp_path, nvcc):
@@ -549,6 +613,108 @@ def test_int4_ring_matches_plain_on_the_card(cuda_device, r):
             got, int4_frontier.int4_frontier_scores_plain(
                 clamped, *views, metric=metric),
             rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [5, 13, 64])
+def test_int8_ring_matches_plain_on_the_card(cuda_device, r):
+    """The persistent ring at B = 1, 7, 1024 and 5000, D = 30, 40, 100,
+    128, L2/IP/cosine, over every byte value (-128 included), zero scales,
+    a zero query, repeated and out-of-range rows: within rtol = atol =
+    1e-5, in the bulk branch where R % 4 == 0 and the vector branch
+    otherwise (R = 13, D = 30: 390-byte code blocks copied byte by byte),
+    and for views of the three tables off their 16-byte boundaries."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r)
+    C = 512
+
+    def tables(c, d):
+        codes = torch.randint(-128, 128, (c, r, d), dtype=torch.int8,
+                              device=cuda_device, generator=gen)
+        scale = 0.005 * torch.rand((c, r), device=cuda_device, generator=gen)
+        scale[:, ::4] = 0.0  # empty edge slots
+        return codes, scale
+
+    for d in (30, 40, 100, 128):
+        codes, scale = tables(C, d)
+        for b in (1, 7, 1024, 5000):
+            q = 0.3 * torch.randn((b, d), device=cuda_device, generator=gen)
+            q[0] = 0.0  # zero query: cosine 1.0
+            cur, clamped = _ring_curs(gen, cuda_device, b, C)
+            for metric in METRICS:
+                got = int8_frontier.int8_frontier_scores(
+                    cur, q, codes, scale, metric=metric)
+                plan = int8_frontier.LAST_PLAN
+                want = int8_frontier.int8_frontier_scores_plain(
+                    clamped, q, codes, scale, metric=metric)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                           msg=f"{d} {b} {metric} {plan}")
+            assert plan.bulk == (r % 4 == 0)
+    # codes[1:] starts 150 bytes in, scale[1:] 20 bytes, q[1:] 120 bytes.
+    codes, scale = tables(C + 1, 30)
+    codes = codes[:, :5].contiguous()
+    scale = scale[:, :5].contiguous()
+    q = 0.3 * torch.randn((1025, 30), device=cuda_device, generator=gen)
+    cur, clamped = _ring_curs(gen, cuda_device, 1024, C)
+    views = (q[1:], codes[1:], scale[1:])
+    for metric in METRICS:
+        got = int8_frontier.int8_frontier_scores(cur, *views, metric=metric)
+        assert not int8_frontier.LAST_PLAN.bulk
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, int8_frontier.int8_frontier_scores_plain(
+                clamped, *views, metric=metric),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d", [(128, 3072), (64, 4096), (13, 12288)])
+def test_int8_ring_in_pieces_matches_plain_on_the_card(cuda_device, r, d):
+    """Nodes too large for two stages, scored in pieces of
+    ``stage_rows(R, D)`` rows (R=128, D=3072: 4 x 32 rows, bulk; R=64,
+    D=4096: 24+24+16, bulk; R=13, D=12288: 4+4+4+1, vector), at B = 1, 7
+    and 1024, L2/IP/cosine, with repeated and out-of-range rows: within
+    rtol = atol = 1e-5 of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r * d)
+    C = 64
+    codes = torch.randint(-128, 128, (C, r, d), dtype=torch.int8,
+                          device=cuda_device, generator=gen)
+    scale = 0.002 * torch.rand((C, r), device=cuda_device, generator=gen)
+    scale[:, ::4] = 0.0
+    rows = int8_frontier.stage_rows(r, d)
+    assert rows < r
+    for b in (1, 7, 1024):
+        q = 0.3 * torch.randn((b, d), device=cuda_device, generator=gen)
+        q[0] = 0.0
+        cur, clamped = _ring_curs(gen, cuda_device, b, C)
+        for metric in METRICS:
+            got = int8_frontier.int8_frontier_scores(cur, q, codes, scale,
+                                                     metric=metric)
+            plan = int8_frontier.LAST_PLAN
+            assert plan.stage_bytes == int8_frontier.stage_bytes(rows, d)
+            assert plan.bulk == (r % 4 == 0)
+            want = int8_frontier.int8_frontier_scores_plain(
+                clamped, q, codes, scale, metric=metric)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                       msg=f"{b} {metric} {plan}")
+
+
+@pytest.mark.cuda
+def test_train_time_of_an_empty_kernel_is_below_its_lone_call_time(
+        cuda_device):
+    """A train of back-to-back calls charges each call the gap between two
+    kernels, not the events' cost around a lone call."""
+    from duckdb_lm_diskann_tpu_torch.utils import cuda_timing
+
+    def empty(i):
+        torch.cuda._sleep(0)
+
+    for i in range(3):
+        empty(i)
+    lone = float(np.median(cuda_timing.device_ms(empty, 20)))
+    train = cuda_timing.device_ms_train(empty, 20)
+    assert 0.0 < train < lone, (train, lone)
 
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
