@@ -18,16 +18,19 @@ Phases (each raises on failure, so the script exits non-zero):
    and 100 and INT8 at D = 128 and 100 (R = 64), for L2/IP/cosine,
    rtol = atol = 1e-5 (the two sum in a different f32 order); TERNARY at
    W = 30 (D = 960) and W = 4, exactly equal (integer scores); the row
-   gather of one 1280-word table and of the four SoA tables (128, 64, 64,
-   1024 words) at n_flight 4, 8 and 16, a ragged 130-word table, and rows
-   above 2^21 of a 1280-word table, exactly equal. Each is timed with CUDA
+   gather, exactly equal, at B = 1, 7, 1024 and 5000 with repeated and
+   out-of-range rows, n_flight 4, 8 and 16: one 1280-word table and the
+   four SoA tables (128, 64, 64, 1024 words) in its 16-byte path, a
+   ragged 130-word table and a view one word off 16 bytes in its 4-byte
+   path, and rows above 2^21 of a 1280-word table in both. Each is timed with CUDA
    events, every call on a fresh set of rows, two ways: each call alone
    behind a sleep kernel (``ms``) and a train of calls back to back behind
    one (``train_ms``, what a loop of launches pays a call); beside them the
    least time the card could take for the same work (``bound_ms``) and,
    for the one-table gather, ``torch.index_select`` (``library_ms``,
    ``library_train_ms``; the two are timed in turns: kernel, library,
-   library, kernel). The three ring kernels (INT4, TERNARY, INT8) are also
+   library, kernel, at B = 1024 and over B = 256, 1024, 4096 and 16,384,
+   with the gather's launch plan). The three ring kernels (INT4, TERNARY, INT8) are also
    timed at B = 1, 256, 1024 and 2048 with their launch plans (grid,
    stages, branch), and held against their plain versions over 2^20 rows
    at B = 1, 7, 1024, 5000 and R = 5, 13, 64 (TERNARY at W = 2, 4, 30, 66;
@@ -174,6 +177,47 @@ def batch_sweep(torch, dev, gen, mod, name, n_rows, reps, make_queries, call,
                        "plan": plan_of(mod.LAST_PLAN)}
         log(f"{name} B={b}: kernel {ms:.5f} ms (train {train:.5f}), bound "
             f"{bound_ms:.5f} ms, plan {out[str(b)]['plan']}")
+    return out
+
+
+# Batch sizes of the row gather's sweep against index_select: the smaller
+# ones weigh the gap between kernels, the larger the steady rate.
+GATHER_BATCHES = (256, 1024, 4096, 16384)
+
+
+def gather_sweep(torch, dev, gen, kg, src, n_rows, reps):
+    """The row gather (K = 8) and ``index_select`` on fresh rows of ``src``
+    at each of GATHER_BATCHES, in turns (kernel, library, library, kernel),
+    by lone calls and in trains, beside the bound and the kernel's plan."""
+    out = {}
+    x = src.shape[1]
+    for b in GATHER_BATCHES:
+        curs = _random_curs(torch, dev, gen, n_rows, b, reps)
+
+        def kern(i):
+            return kg.pipelined_gather(curs[i], src, 8)
+
+        def lib(i):
+            return torch.index_select(src, 0, curs[i])
+
+        fns = (kern, lib, lib, kern)
+        lone = [time_ms(torch, fn, reps) for fn in fns]
+        train = [train_ms(torch, fn, reps) for fn in fns]
+        bound_ms, _ = bound(curs, reps, 4 * x, b * (4 * x + 4), 0)
+        rec = {
+            "ms": (lone[0] + lone[3]) / 2,
+            "library_ms": (lone[1] + lone[2]) / 2,
+            "train_ms": (train[0] + train[3]) / 2,
+            "library_train_ms": (train[1] + train[2]) / 2,
+            "turns_ms": lone, "train_turns_ms": train, "bound_ms": bound_ms,
+            "plan": kg.LAST_PLAN._asdict(),
+        }
+        out[str(b)] = rec
+        log(f"row gather B={b}: kernel {rec['ms']:.5f} ms (train "
+            f"{rec['train_ms']:.5f}), index_select {rec['library_ms']:.5f} "
+            f"(train {rec['library_train_ms']:.5f}), bound {bound_ms:.5f} "
+            f"ms, plan {rec['plan']}")
+        del curs
     return out
 
 
@@ -536,9 +580,12 @@ def reset_counts(kernels):
 def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
                      hi_rows=1 << 21):
     """Row-gather kernel vs plain, exactly: one 1280-word table and the
-    four SoA tables at n_flight 4, 8 and 16, a ragged 130-word table, and
-    rows above 2^21 of a 1280-word table. Returns the records of its two
-    entry points (pipelined_gather, pipelined_gather4)."""
+    four SoA tables at n_flight 4, 8 and 16 (16-byte path), a ragged
+    130-word table and a table view one word off 16 bytes (4-byte path), and
+    rows above 2^21 of a 1280-word table in both paths. Then its times: in
+    turns with index_select at B = 1024 and over GATHER_BATCHES, by K, and
+    the four tables'. Returns the records of its two entry points
+    (pipelined_gather, pipelined_gather4)."""
     from duckdb_lm_diskann_tpu_torch.kernels import row_gather as kg
 
     gen = torch.Generator(device=dev).manual_seed(0x6A7)
@@ -547,8 +594,11 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
         return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32,
                              device=dev, generator=gen)
 
+    paths = set()
+
     def same(got, want, what):
         torch.cuda.synchronize()
+        paths.add("16-byte" if all(kg.LAST_PLAN.vec) else "4-byte")
         if not torch.equal(got, want):
             bad = int((got != want).any(-1).sum())
             raise AssertionError(f"row gather != plain: {what}, {bad} rows")
@@ -557,23 +607,45 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
     sep4 = [rand((n_rows, x)) for x in (128, 64, 64, 1024)]
     combined = torch.cat(sep4, 1)
     x = combined.shape[1]
-    for k in (4, 8, 16):
-        same(kg.pipelined_gather(curs[0], combined, n_flight=k),
-             kg.pipelined_gather_plain(curs[0], combined), f"X={x} K={k}")
-        for got, t in zip(kg.pipelined_gather4(curs[0], sep4, n_flight=k), sep4):
-            same(got, kg.pipelined_gather_plain(curs[0], t),
-                 f"four tables, X={t.shape[1]} K={k}")
-    log("row gather == plain: X=1280 and the four SoA tables, K=4/8/16")
+    ragged = rand((n_rows, 130))  # 4-byte path: 520-byte rows
+    flat = combined.view(-1)  # 4-byte path: a view one word off 16 bytes
+    shifted = flat[1 : 1 + (n_rows - 1) * x].view(n_rows - 1, x)
+    cases = 0
+    for nb in (1, 7, 1024, 5000):
+        idx = torch.randint(0, n_rows, (nb,), dtype=torch.int32, device=dev,
+                            generator=gen)
+        idx[1::7] = idx[0]  # repeated rows
+        idx[2:3] = -5  # out of range: clamped to row 0
+        idx[3:4] = 10**7  # out of range: clamped to the last row
+        for k in (4, 8, 16):
+            for name, t in (("X=1280", combined), ("X=130", ragged),
+                            ("X=1280 one word off", shifted)):
+                same(kg.pipelined_gather(idx, t, n_flight=k),
+                     kg.pipelined_gather_plain(idx, t), f"{name} B={nb} K={k}")
+            for got, t in zip(kg.pipelined_gather4(idx, sep4, n_flight=k),
+                              sep4):
+                same(got, kg.pipelined_gather_plain(idx, t),
+                     f"four tables, X={t.shape[1]} B={nb} K={k}")
+            cases += 4
+    del ragged, flat, shifted
+    if paths != {"16-byte", "4-byte"}:
+        raise AssertionError(f"row gather cases ran paths {paths}")
+    log(f"row gather == plain: {cases} cases (B=1/7/1024/5000 x K=4/8/16 x "
+        "X=1280, X=130, a view one word off, the four SoA tables), both "
+        "paths")
     one, four = {}, {}
     row_bytes, fixed = 4 * x, b * (4 * x + 4)  # distinct rows read; out + idx
     one["bound_ms"], one["bound_by"] = bound(curs, reps, row_bytes, fixed, 0)
     four["bound_ms"], four["bound_by"] = one["bound_ms"], one["bound_by"]
-    by_k = {}
+    by_k, train_by_k = {}, {}
     for k in (4, 8, 16):
-        by_k[str(k)] = time_ms(
-            torch, lambda i, k=k: kg.pipelined_gather(curs[i], combined, k), reps
-        )
+        def call(i, k=k):
+            return kg.pipelined_gather(curs[i], combined, k)
+
+        by_k[str(k)] = time_ms(torch, call, reps)
+        train_by_k[str(k)] = train_ms(torch, call, reps)
     one["ms_by_n_flight"] = by_k
+    one["train_ms_by_n_flight"] = train_by_k
     # Kernel and index_select in turns (kernel, library, library, kernel):
     # each number is the mean of its two turns.
     def kern(i):
@@ -593,6 +665,8 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
     one["train_ms"] = (trains[0] + trains[3]) / 2
     one["library_train_ms"] = (trains[1] + trains[2]) / 2
     one["wall_ms"] = time_ms(torch, kern, reps, wall=True)
+    one["plan"] = kg.LAST_PLAN._asdict()
+    one["by_batch"] = gather_sweep(torch, dev, gen, kg, combined, n_rows, reps)
     one["plain_ms"] = time_ms(
         torch, lambda i: kg.pipelined_gather_plain(curs[i], combined), reps
     )
@@ -602,6 +676,11 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
     four["train_ms"] = train_ms(
         torch, lambda i: kg.pipelined_gather4(curs[i], sep4, 8), reps
     )
+    four["wall_ms"] = time_ms(
+        torch, lambda i: kg.pipelined_gather4(curs[i], sep4, 8), reps,
+        wall=True,
+    )
+    four["plan"] = kg.LAST_PLAN._asdict()
     four["plain_ms"] = time_ms(
         torch,
         lambda i: [kg.pipelined_gather_plain(curs[i], t) for t in sep4],
@@ -613,32 +692,36 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
         f"{', '.join(f'{t:.5f}' for t in trains)} ms")
     log(f"row gather B={b} X={x}: kernel {one['ms']:.5f} ms (train "
         f"{one['train_ms']:.5f}, wall {one['wall_ms']:.4f}; K=4/8/16 "
-        f"{by_k['4']:.4f}/{by_k['8']:.4f}/{by_k['16']:.4f}), plain "
-        f"{one['plain_ms']:.4f} ms, index_select {one['library_ms']:.4f} ms, "
-        f"bound {one['bound_ms']:.5f} ms; four tables: kernel "
-        f"{four['ms']:.5f} ms (train {four['train_ms']:.5f}), plain "
-        f"{four['plain_ms']:.4f} ms")
+        f"{by_k['4']:.4f}/{by_k['8']:.4f}/{by_k['16']:.4f}, trains "
+        f"{train_by_k['4']:.5f}/{train_by_k['8']:.5f}/"
+        f"{train_by_k['16']:.5f}), plain {one['plain_ms']:.4f} ms, "
+        f"index_select {one['library_ms']:.4f} ms, bound "
+        f"{one['bound_ms']:.5f} ms, plan {one['plan']}; four tables: kernel "
+        f"{four['ms']:.5f} ms (train {four['train_ms']:.5f}, wall "
+        f"{four['wall_ms']:.4f}), plain {four['plain_ms']:.4f} ms, plan "
+        f"{four['plan']}")
     del sep4, combined
     _free(torch)
 
-    ragged = rand((n_rows, 130))  # 4-byte path
-    for k in (4, 8, 16):
-        same(kg.pipelined_gather(curs[0], ragged, n_flight=k),
-             kg.pipelined_gather_plain(curs[0], ragged), f"X=130 K={k}")
-    del ragged
-    # Rows past 2^21 of a 1280-word table (row * X passes 2^31): only the
-    # gathered rows are written.
+    # Rows past 2^21 of a 1280-word table (row * X passes 2^31), in both
+    # paths: only the gathered rows (and the next, for the shifted view)
+    # are written.
     big = torch.empty((hi_rows + (1 << 12), 1280), dtype=torch.int32,
                       device=dev)
-    hi = torch.randint(hi_rows, big.shape[0], (b,), dtype=torch.int32,
+    hi = torch.randint(hi_rows, big.shape[0] - 1, (b,), dtype=torch.int32,
                        device=dev, generator=gen)
     hi[1::7] = hi[0]
     big[hi.long()] = rand((b, 1280))
+    big[hi.long() + 1] = rand((b, 1280))
+    big_shifted = big.view(-1)[1 : 1 + (big.shape[0] - 1) * 1280].view(-1, 1280)
     for k in (4, 8, 16):
         same(kg.pipelined_gather(hi, big, n_flight=k),
              kg.pipelined_gather_plain(hi, big), f"rows >= 2^21, K={k}")
-    log("row gather == plain: X=130, and rows >= 2^21 at X=1280")
-    del big, hi, curs
+        same(kg.pipelined_gather(hi, big_shifted, n_flight=k),
+             kg.pipelined_gather_plain(hi, big_shifted),
+             f"rows >= 2^21 one word off, K={k}")
+    log("row gather == plain: rows >= 2^21 at X=1280, both paths")
+    del big, big_shifted, hi, curs
     _free(torch)
     ref = "benchmarks/profile_hop.py"
     base = {"route": "cuda", "source": f"{_PKG}/csrc/row_gather.cu",

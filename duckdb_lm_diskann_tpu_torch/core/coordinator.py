@@ -290,8 +290,6 @@ class Coordinator:
             )
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if stream and beam_width != 1:
-            raise ValueError("stream search supports beam_width=1 only")
         B = queries.shape[0]
         # L_search = max(explicit param or config default, k)
         # (Coordinator.cpp:63-102 / Searcher::Search :256-272).
@@ -303,6 +301,9 @@ class Coordinator:
                 np.full((B, k), INVALID_ROW_ID, np.int64),
                 np.full((B, k), np.inf, np.float32),
             )
+        # As the JAX package: an empty index answers any beam_width first.
+        if stream and beam_width != 1:
+            raise ValueError("stream search supports beam_width=1 only")
         dev = view.arrays.device
         seeds = view.seeds
         allowed = None

@@ -32,15 +32,23 @@
 // * 320 threads. 16-byte units (uint4) are used where X_t % 4 == 0 and both
 // pointers are 16-byte aligned; 4-byte words otherwise (a ragged X). Row
 // offsets are 64-bit: a 2^20 x 1280-word table holds 1.34e9 words, and a row
-// index above ~1.6M would wrap a 32-bit offset. cp.async / TMA staging is
-// later work.
+// index above ~1.6M would wrap a 32-bit offset. The launch geometry is
+// mirrored by the wrapper's plan (kernels/_build.py, gather_plan; kThreads
+// is row_gather.py's THREADS).
+//
+// A bulk-copy design (each row through shared memory by 1-D cp.async.bulk
+// loads and stores on mbarrier stages, experiments/row_gather_bulk.cu) was
+// timed beside this copy (experiments/row_gather_ab.py, PERF.md): faster at
+// B = 256, level at 1024 and 4096, slower at 16,384, and never faster than
+// index_select at B <= 1024. It is not faster at every size, so this copy
+// stays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // kernels/row_gather.py: THREADS
 constexpr int kMaxTables = 4;
 
 struct Table {

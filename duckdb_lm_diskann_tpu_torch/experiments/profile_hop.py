@@ -25,7 +25,10 @@ combined self-contained row u32[2^20, 1280] (the reference's one block
 read per visit), each through ``index_select``, and through the port's
 row-gather kernel (``kernels/row_gather``, the port of the TPU kernels
 ``_pipelined_gather`` and ``_pipelined_gather4``) with n_flight = K rows in
-flight. The kernel is checked equal to ``index_select`` before any timing.
+flight. The kernel is checked equal to ``index_select`` before any timing;
+each kernel row carries the launch plan of its last call
+(``row_gather.LAST_PLAN``: blocks, threads, row groups of K, column units
+and their width per table).
 
 Every cost is the SLOPE of time against loop iterations between
 ``ITERS_LO`` and ``ITERS_HI``, timed with CUDA events around a Python loop,
@@ -44,6 +47,7 @@ import torch
 
 from ..common.types import MetricType
 from ..kernels.int4_frontier import int4_frontier_scores
+from ..kernels import row_gather
 from ..kernels.row_gather import pipelined_gather, pipelined_gather4
 from ..ops import topk as topk_ops
 from ..ops.distance import pairwise_distance
@@ -293,11 +297,15 @@ def gather_ab(dev, out=print) -> list[dict]:
             # iterations.
             return (((idx.long() + fn(idx) + i) & (CAP - 1)).to(torch.int32),)
 
+        row_gather.LAST_PLAN = None
         wall, card = _time_loop(step, [(s,) for s in seeds])
+        plan = row_gather.LAST_PLAN
         out(f"{name:18s}: {wall:.3f} ms/iter wall, {card:.4f} ms/iter on the "
-            f"card ({card * 1e6 / B:.1f} ns/row)")
+            f"card ({card * 1e6 / B:.1f} ns/row)"
+            + (f", plan {plan._asdict()}" if plan else ""))
         rows.append({"variant": name, "ms_per_iter": wall,
-                     "device_ms_per_iter": card})
+                     "device_ms_per_iter": card,
+                     **({"plan": plan._asdict()} if plan else {})})
     return rows
 
 

@@ -13,8 +13,9 @@ slowest build rather than the sum.
 
 ``ring_plan`` is the launch plan of the frontier scorers' persistent
 ring (``csrc/ring.cuh``): grid, stages and branch, from the card's SM count
-and the tensors' sizes and alignment. It is plain Python, so the CPU tests
-reach it.
+and the tensors' sizes and alignment. ``gather_plan`` is the launch
+geometry of the row gather (``csrc/row_gather.cu``). Both are plain
+Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -232,6 +233,40 @@ def ring_plan(n_queries: int, sm_count: int, stage_bytes: int, pointers,
         grid=min(n_queries, k * sm_count), stages=stages, bulk=bulk,
         stage_bytes=stage_bytes,
     )
+
+
+class GatherPlan(NamedTuple):
+    blocks: int  # the grid: ceil(groups * sum(units) / threads)
+    threads: int  # a block's threads (the kernel's kThreads)
+    groups: int  # ceil(B / n_flight): a thread's rows, loaded before a store
+    units: tuple  # per table: a row's column units, one a thread
+    vec: tuple  # per table: 16-byte units (else 4-byte words)
+
+
+def gather_plan(n_rows: int, n_flight: int, widths, pointers,
+                threads: int) -> GatherPlan:
+    """Launch geometry of the row gather (``csrc/row_gather.cu``, whose
+    entry point derives the same from the same arguments) for ``n_rows``
+    rows of tables ``widths`` words wide; ``pointers`` are each table's
+    (source, output) data addresses and ``threads`` the kernel's
+    ``kThreads``. A table moves 16-byte units where its width is a multiple
+    of 4 words and both its pointers are 16-byte aligned, else 4-byte
+    words. The rows go in groups of ``n_flight``, and each thread owns one
+    unit of every row of its group. Raises ValueError for a negative row
+    count, an ``n_flight`` below 1, or a grid past 2^31 - 1 blocks (which
+    the entry point refuses)."""
+    if n_rows < 0 or n_flight < 1:
+        raise ValueError(f"gather_plan: {n_rows} rows, n_flight {n_flight}")
+    vec = tuple(
+        w % 4 == 0 and src % 16 == 0 and out % 16 == 0
+        for w, (src, out) in zip(widths, pointers)
+    )
+    units = tuple(w // 4 if v else w for w, v in zip(widths, vec))
+    groups = -(-n_rows // n_flight)
+    blocks = -(-groups * sum(units) // threads)
+    if blocks > 0x7FFFFFFF:
+        raise ValueError(f"gather_plan: a grid of {blocks} blocks")
+    return GatherPlan(blocks, threads, groups, units, vec)
 
 
 def sm_count(device: torch.device) -> int:

@@ -14,6 +14,9 @@ alike.
 
 Dispatch follows the tensors, never a switch: CPU tensors take the plain
 PyTorch version (``index_select``); CUDA tensors launch the kernel or raise.
+The kernel's launch geometry (blocks, threads, row groups, column units and
+their width per table) is ``_build.gather_plan`` of the call's sizes and
+pointers; the last launch's is ``LAST_PLAN``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,13 @@ import ctypes
 
 import torch
 
-from ._build import KernelLibrary, check_tensors, launch
+from ._build import (
+    GatherPlan,
+    KernelLibrary,
+    check_tensors,
+    gather_plan,
+    launch,
+)
 
 LIBRARY = KernelLibrary(
     "row_gather", "lmd_row_gather",
@@ -31,12 +40,14 @@ LIBRARY = KernelLibrary(
        ctypes.c_void_p],
 )
 N_FLIGHT = (4, 8, 16)  # the kernel's instantiations
+THREADS = 256  # the kernel's kThreads (csrc/row_gather.cu)
 
 # Kernel launches since the last reset, by entry point: LAUNCHES for
 # pipelined_gather, LAUNCHES4 for pipelined_gather4 (chip_smoke.py reads and
-# resets both).
+# resets both), and the plan of the last launch.
 LAUNCHES = 0
 LAUNCHES4 = 0
+LAST_PLAN: GatherPlan | None = None
 
 
 def pipelined_gather_plain(idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -62,7 +73,7 @@ def _check(idx, tables, n_flight) -> torch.device:
 
 
 def _gather(idx, tables, n_flight):
-    global LAUNCHES, LAUNCHES4
+    global LAUNCHES, LAUNCHES4, LAST_PLAN
     if _check(idx, tables, n_flight).type == "cpu":
         return [pipelined_gather_plain(idx, t) for t in tables]
     B = idx.shape[0]
@@ -70,6 +81,12 @@ def _gather(idx, tables, n_flight):
         torch.empty((B, t.shape[1]), dtype=torch.int32, device=idx.device)
         for t in tables
     ]
+    plan = gather_plan(
+        B, n_flight, [t.shape[1] for t in tables],
+        [(t.data_ptr(), o.data_ptr()) for t, o in zip(tables, outs)], THREADS,
+    )
+    if plan.blocks == 0:  # no rows, or rows of width 0: nothing to launch
+        return outs
     pad = 4 - len(tables)  # unused slots: width 0, never read
     srcs, dsts = list(tables) + [idx] * pad, outs + [idx] * pad
     widths = [t.shape[1] for t in tables] + [0] * pad
@@ -82,6 +99,7 @@ def _gather(idx, tables, n_flight):
         LAUNCHES += 1
     else:
         LAUNCHES4 += 1
+    LAST_PLAN = plan
     return outs
 
 

@@ -414,6 +414,89 @@ def test_int8_stage_sizes_and_pieces_on_the_cpu():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+ALIGNED = [(0, 256)]  # a table and its output, both 16-byte aligned
+FOUR = [128, 64, 64, 1024]  # the hop profiler's four SoA tables, in words
+
+
+@pytest.mark.parametrize(
+    "n_rows, n_flight, widths, pointers, want",
+    [
+        # B=1 and 7: one group of 320 16-byte units, two blocks.
+        (1, 8, [1280], ALIGNED, (2, 1, (320,), (True,))),
+        (7, 16, [1280], ALIGNED, (2, 1, (320,), (True,))),
+        # B=1024 (the profiler's batch): K sets the groups and the grid.
+        (1024, 4, [1280], ALIGNED, (320, 256, (320,), (True,))),
+        (1024, 8, [1280], ALIGNED, (160, 128, (320,), (True,))),
+        (1024, 16, [1280], ALIGNED, (80, 64, (320,), (True,))),
+        # The four SoA tables: a group's units are the sum of theirs.
+        (1024, 8, FOUR, ALIGNED * 4,
+         (160, 128, (32, 16, 16, 256), (True,) * 4)),
+        (5000, 4, [1280], ALIGNED, (1563, 1250, (320,), (True,))),
+        (16384, 8, [1280], ALIGNED, (2560, 2048, (320,), (True,))),
+        # X=130: a ragged width moves 4-byte words.
+        (1024, 8, [130], ALIGNED, (65, 128, (130,), (False,))),
+        # A table view, or an output, 4 bytes off a 16-byte boundary.
+        (1024, 8, [1280], [(4, 256)], (640, 128, (1280,), (False,))),
+        (1024, 8, [1280], [(0, 260)], (640, 128, (1280,), (False,))),
+        (1024, 16, FOUR, ALIGNED * 3 + [(52, 0)],
+         (272, 64, (32, 16, 16, 1024), (True, True, True, False))),
+        # No rows, or rows of width 0: nothing to launch.
+        (0, 8, [1280], ALIGNED, (0, 0, (320,), (True,))),
+        (1024, 8, [0], ALIGNED, (0, 128, (0,), (True,))),
+    ],
+    ids=["b1", "b7_k16", "b1024_k4", "b1024", "b1024_k16", "four_tables",
+         "b5000_k4", "b16384", "x130", "misaligned", "misaligned_out",
+         "four_misaligned", "b0", "width0"],
+)
+def test_gather_plan(n_rows, n_flight, widths, pointers, want):
+    """ceil(B / K) groups of K rows; a thread per 16-byte unit of a row
+    (a width of 4k words, both pointers 16-byte aligned) or else per 4-byte
+    word; blocks = ceil(groups x units / kThreads)."""
+    plan = _build.gather_plan(n_rows, n_flight, widths, pointers,
+                              row_gather.THREADS)
+    assert (plan.blocks, plan.groups, plan.units, plan.vec) == want
+    assert plan.threads == row_gather.THREADS
+    assert plan.blocks * plan.threads >= plan.groups * sum(plan.units)
+
+
+def test_gather_plan_raises():
+    """A negative row count, an n_flight below 1 and a grid past 2^31 - 1
+    blocks (which the entry point refuses) are refused."""
+    for n_rows, n_flight in ((-1, 8), (1024, 0)):
+        with pytest.raises(ValueError, match="rows"):
+            _build.gather_plan(n_rows, n_flight, [1280], ALIGNED, 256)
+    with pytest.raises(ValueError, match="grid"):
+        _build.gather_plan(2**31 - 1, 1, [1 << 20], [(4, 0)], 256)
+
+
+def _constant(source: str, name: str) -> int:
+    import re
+
+    text = (_build.CSRC / source).read_text()
+    found = re.findall(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;", text)
+    assert len(found) == 1, f"{source}: {name} defined {len(found)} times"
+    return int(found[0])
+
+
+@pytest.mark.parametrize(
+    "source, name, mirror",
+    [
+        ("int4_frontier.cu", "kBlocksPerSm", int4_frontier.BLOCKS_PER_SM),
+        ("int8_frontier.cu", "kBlocksPerSm", int8_frontier.BLOCKS_PER_SM),
+        ("ternary_frontier.cu", "kBlocksPerSm",
+         ternary_frontier.BLOCKS_PER_SM),
+        ("ring.cuh", "kMaxStages", _build.RING_MAX_STAGES),
+        ("row_gather.cu", "kThreads", row_gather.THREADS),
+    ],
+    ids=["int4", "int8", "ternary", "ring", "gather_threads"],
+)
+def test_kernel_constants_match_their_wrappers(source, name, mirror):
+    """Each constant a wrapper copies by hand from a CUDA source (the
+    blocks a SM, stages or threads a block its launch plan assumes) equals
+    the source's, read from the text: no nvcc needed."""
+    assert _constant(source, name) == mirror
+
+
 def _point_builds_at(monkeypatch, tmp_path, nvcc):
     for kernel in KERNELS:
         monkeypatch.setattr(kernel.LIBRARY, "_fn", None)
@@ -813,37 +896,59 @@ def test_row_gather_clamps_and_rejects(rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_flight", row_gather.N_FLIGHT)
 def test_row_gather_kernel_equals_plain_on_the_card(cuda_device, n_flight):
-    """Exactly equal: the 16-byte path (X = 1280, 40), the 4-byte path
-    (X = 130, a ragged width), four SoA tables in one launch, repeated and
-    out-of-range rows, and rows above 2^21 of a 1280-word table (64-bit
-    offsets: row * X passes 2^31)."""
+    """Exactly equal, at B = 1, 7, 1024 and 5000: the 16-byte path
+    (X = 1280, 40, and the four SoA tables in one launch) and the 4-byte
+    path (X = 130, a ragged width, and table views 4 bytes off a 16-byte
+    boundary), with repeated and out-of-range rows; and rows above 2^21 of
+    a 1280-word table in both paths (64-bit offsets: row * X passes 2^31).
+    Each launch counts once, on its entry point's counter."""
     gen = torch.Generator(device=cuda_device).manual_seed(n_flight)
 
     def rand(shape):
         return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32,
                              device=cuda_device, generator=gen)
 
-    idx = torch.randint(0, 4096, (1000,), dtype=torch.int32,
-                        device=cuda_device, generator=gen)
-    idx[1::7] = idx[0]
-    idx[2], idx[3] = -5, 10**6
+    def misaligned(t):  # the same shape, one word off 16 bytes
+        flat = torch.empty(t.numel() + 1, dtype=torch.int32,
+                           device=cuda_device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def check(idx, tables, vec):
+        if len(tables) == 1:
+            got = [row_gather.pipelined_gather(idx, tables[0], n_flight)]
+        else:
+            got = row_gather.pipelined_gather4(idx, tables, n_flight)
+        torch.cuda.synchronize()
+        assert all(row_gather.LAST_PLAN.vec) == vec
+        for g, t in zip(got, tables):
+            assert torch.equal(g, row_gather.pipelined_gather_plain(idx, t))
+
     before = (row_gather.LAUNCHES, row_gather.LAUNCHES4)
-    for x in (1280, 40, 130):
-        src = rand((4096, x))
-        got = row_gather.pipelined_gather(idx, src, n_flight=n_flight)
-        assert torch.equal(got, row_gather.pipelined_gather_plain(idx, src))
-    tabs = [rand((4096, x)) for x in (128, 64, 64, 1024)]
-    for g, t in zip(row_gather.pipelined_gather4(idx, tabs, n_flight), tabs):
-        assert torch.equal(g, row_gather.pipelined_gather_plain(idx, t))
+    for b in (1, 7, 1024, 5000):
+        idx = torch.randint(0, 4096, (b,), dtype=torch.int32,
+                            device=cuda_device, generator=gen)
+        idx[1::7] = idx[0]
+        idx[2:3] = -5
+        idx[3:4] = 10**6
+        for x, vec in ((1280, True), (40, True), (130, False)):
+            check(idx, [rand((4096, x))], vec)
+        check(idx, [misaligned(rand((4096, 1280)))], False)
+        tabs = [rand((4096, x)) for x in (128, 64, 64, 1024)]
+        check(idx, tabs, True)
+        tabs[3] = misaligned(tabs[3])
+        check(idx, tabs, False)
     # Rows past 2^21 of a 1280-word table: only the gathered rows are set.
     big = torch.empty(((1 << 21) + 4096, 1280), dtype=torch.int32,
                       device=cuda_device)
-    hi = torch.randint(1 << 21, big.shape[0], (300,), dtype=torch.int32,
+    hi = torch.randint(1 << 21, big.shape[0] - 1, (300,), dtype=torch.int32,
                        device=cuda_device, generator=gen)
     big[hi.long()] = rand((300, 1280))
-    got = row_gather.pipelined_gather(hi, big, n_flight=n_flight)
-    torch.cuda.synchronize()
-    assert torch.equal(got, row_gather.pipelined_gather_plain(hi, big))
+    big[hi.long() + 1] = rand((300, 1280))
+    check(hi, [big], True)
+    check(hi, [big.view(-1)[1 : 1 + (big.shape[0] - 1) * 1280].view(-1, 1280)],
+          False)
     assert (row_gather.LAUNCHES, row_gather.LAUNCHES4) == (
-        before[0] + 4, before[1] + 1
+        before[0] + 4 * 4 + 2, before[1] + 4 * 2
     )

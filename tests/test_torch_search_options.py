@@ -121,3 +121,21 @@ def test_view_and_errors(coords):
     empty = Coordinator(configs(dims=DIMS)[1], device="cpu")
     ids, d = empty.search(q, 3, stream=True, adaptive_seeds=2)
     assert (ids == -1).all() and np.isinf(d).all()
+
+
+def test_empty_index_stream_search_with_beam_width_matches_jax(coords):
+    """An empty index answers (-1, +inf) to a stream search of any
+    beam_width, as the JAX Coordinator does; only a non-empty index refuses
+    beam_width != 1 on the stream path."""
+    _, port, q = coords
+    jax_cfg, port_cfg = configs(dims=DIMS)
+    got = Coordinator(port_cfg, device="cpu").search(
+        q, 3, beam_width=2, stream=True
+    )
+    want = JaxCoordinator(jax_cfg).search(q, 3, beam_width=2, stream=True)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[0].dtype == want[0].dtype and got[1].dtype == want[1].dtype
+    assert (got[0] == -1).all() and np.isinf(got[1]).all()
+    with pytest.raises(ValueError, match="beam_width=1"):
+        port.search(q, 3, beam_width=2, stream=True)
