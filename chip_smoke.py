@@ -4,7 +4,7 @@
 Usage, from the repository root:
 
     python3 chip_smoke.py [--n N] [--queries Q] [--hard-n N] [--gist-n N]
-                          [--int8-n N]
+                          [--int8-n N] [--codec-n N] [--int8-nodes-n N]
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -64,14 +64,35 @@ Phases (each raises on failure, so the script exits non-zero):
    - INT8: ``make_corpus(N, 128)``, L2, default codec (INT8), R=64,
      L_insert=128, build batches of 2048; top-10 at L_search=100, search
      batches of 1024 (``--int8-n``, default 262,144).
-   Every kernel counter is set to 0 just before a path (and before each
-   serving search) and read just after; the path's kernel must have
-   launched in its build and in each search. recall@10 against a
-   brute-force scan on the card must reach 0.95 on the smooth corpora
-   (HARD's recall is printed, not held), and every returned distance must
-   equal the exact f64 one to 1e-4. Each search reports QPS, hops, visits
-   per query and the hop roofline's ``sol_qps`` and ``sol_fraction``. Each
-   path's tensors are freed before the next.
+   The index lifecycle rides on two of them: HARD runs ``refine()`` (the
+   build-side Vamana second pass and its reachability repair) right after
+   its build, as ``bench.py`` does, with one lock-step search before it;
+   the headline, after its serving searches, deletes two batches of 1,000
+   rows picked from the path's rng (cold, then steady with its phases
+   timed by ``experiments/profile_delete.py``), searches the live rows (no
+   deleted row may come back; recall@10 against a scan of the live rows),
+   vacuums (2,000 slots recycled; every live node reachable,
+   ``utils/verify.py``), re-inserts the 2,000 rows (each into a recycled
+   slot) and searches again against the whole corpus.
+5. The codecs without a TPU kernel: DEEP's corpus (``make_corpus(N, 96,
+   seed=0xDEE9)``), cosine, R=64, L_insert=128, L_search=100, 4096
+   queries, built and searched with FLOAT32, FLOAT16, NONE and FLOAT1BIT
+   (``--codec-n``, default 32,768); no kernel may launch; recall@10 must
+   reach 0.95 (FLOAT1BIT's, sign-only navigation, is printed).
+6. INT8 node vectors: the headline's corpus scaled and rounded into
+   [-128, 127] (``--int8-nodes-n``, default 65,536), built with INT8 and
+   with FLOAT32 node vectors, for L2/INT8 and cosine/TERNARY edges: the
+   rowids of the two builds must be identical and the INT8 vector table a
+   quarter of the bytes.
+
+In phases 4-6 every kernel counter is set to 0 just before a path (and
+before each serving search and lifecycle phase) and read just after; the
+path's kernel must have launched in its build and in each search, and no
+other kernel. recall@10 against a brute-force scan on the card must reach
+0.95 where stated (HARD's is printed, not held), and every returned
+distance must equal the exact f64 one to 1e-4. Each search reports QPS,
+hops, visits per query and the hop roofline's ``sol_qps`` and
+``sol_fraction``. Each path's tensors are freed before the next.
 
 Standard output: the profiler's rows, a line of end-to-end numbers per
 path, the card's name and power limit, a line with the kernels' numbers,
@@ -793,12 +814,13 @@ def exact_distances(queries, vecs, metric_name):
 PATHS = {
     "int4_headline": dict(
         dims=128, seed=0xBE7C4, metric="l2", edge_type="int4", l_search=100,
-        max_batch=2048, search_batch=1024, codec="int4",
+        max_batch=2048, search_batch=1024, codec="int4", lifecycle=True,
     ),
     "hard": dict(
         dims=128, seed=0x4A2D, metric="l2", edge_type="int4", l_search=100,
         max_batch=1024, search_batch=512, codec="int4", corpus="hard",
         min_recall=None,  # 5% exact duplicates: strict recall is printed
+        refine=True,
     ),
     "gist_ternary": dict(
         dims=960, seed=0x61577, metric="cosine", edge_type=None,
@@ -830,6 +852,19 @@ def check_exact(name, data, queries, ids, dists, metric):
     return err
 
 
+def check_launches(kernels, kernel, label):
+    """The launches of ``kernel`` since the counters were set to 0: it must
+    have launched, and no other kernel. ``kernel`` None (a codec without a
+    kernel): no kernel may have launched."""
+    launches = 0 if kernel is None else kernel.LAUNCHES
+    others = {c: m.LAUNCHES for c, m in kernels.items() if m is not kernel}
+    if (kernel is not None and launches <= 0) or any(others.values()):
+        raise AssertionError(
+            f"{label}: kernel launches {launches}, other kernels {others}"
+        )
+    return launches
+
+
 def timed_search(torch, kernels, kernel, coord, queries, k, label, **opts):
     """One Coordinator.search with the counters set to 0 just before; the
     path's kernel must launch and no other. Returns (ids, dists, metrics)
@@ -844,12 +879,7 @@ def timed_search(torch, kernels, kernel, coord, queries, k, label, **opts):
     ids, dists = coord.search(queries, k, **opts)
     secs = time.perf_counter() - t0
     stats = coord.last_search_stats
-    launches = kernel.LAUNCHES
-    others = {c: m.LAUNCHES for c, m in kernels.items() if m is not kernel}
-    if launches <= 0 or any(others.values()):
-        raise AssertionError(
-            f"{label}: kernel launches {launches}, other kernels {others}"
-        )
+    launches = check_launches(kernels, kernel, label)
     width = opts.get("beam_width", 1)
     batch = opts["lanes"] if opts.get("stream") else opts.get("batch_size")
     rl = hop_roofline(
@@ -948,6 +978,133 @@ def serve_hard(torch, dev, kernels, kernel, coord, data, queries, ids,
 
 SERVE = {"int4_headline": serve_headline, "hard": serve_hard}
 
+# bench.py:635-652: two delete batches of this many rows, cold then steady.
+DELETE_ROWS = 1000
+
+
+def lifecycle_headline(torch, dev, kernels, kernel, coord, data, queries,
+                       truth, rng, k, metric, batch):
+    """The lifecycle on the headline graph, after its serving searches (as
+    bench.py orders them): two deletes of DELETE_ROWS rows picked from the
+    path's rng (bench.py:641), cold then steady, each timed with its device
+    work (the steady one phase by phase by experiments/profile_delete.py);
+    the lock-step queries against a scan of the live rows; vacuum (2 *
+    DELETE_ROWS slots recycled, full reachability); the deleted rows
+    re-inserted into the recycled slots; the queries again against the
+    whole corpus. Returns its metrics with the INT4 launches per phase."""
+    from duckdb_lm_diskann_tpu_torch.experiments import profile_delete
+    from duckdb_lm_diskann_tpu_torch.utils.verify import verify_graph
+
+    out, launches = {}, {}
+    n = len(data)
+    picks = rng.choice(n, 2 * DELETE_ROWS, replace=False)
+    freed = coord.allocator.lookup_slots(picks)
+
+    reset_counts(kernels)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if coord.delete(picks[:DELETE_ROWS].tolist()) != DELETE_ROWS:
+        raise AssertionError("headline delete: rows missing")
+    torch.cuda.synchronize(dev)
+    out["delete_cold_ms_per_row"] = (
+        1e3 * (time.perf_counter() - t0) / DELETE_ROWS)
+    prof = profile_delete.profile(coord, picks[DELETE_ROWS:])
+    if prof["rows"] != DELETE_ROWS:
+        raise AssertionError(f"headline delete: {prof['rows']} rows")
+    out["delete_ms_per_row"] = prof["ms_per_row"]
+    out["delete_profile"] = prof
+    launches["delete"] = sum(m.LAUNCHES for m in kernels.values())
+    log(f"headline delete: cold {out['delete_cold_ms_per_row']:.3f} ms/row, "
+        f"steady {out['delete_ms_per_row']:.3f} ms/row, phases (ms) "
+        f"{ {p: round(t, 1) for p, t in prof['phases_ms'].items()} }, "
+        f"{prof['rounds']} repair rounds")
+
+    ids, dists, m = timed_search(
+        torch, kernels, kernel, coord, queries, k, "headline after delete",
+        batch_size=batch,
+    )
+    if np.isin(ids, picks).any():
+        raise AssertionError("headline: a deleted row came back")
+    live = np.setdiff1d(np.arange(n), picks)
+    live_truth = live[exact_topk(torch, dev, data[live], queries, k,
+                                 coord.params.metric)]
+    m["recall_at_10"] = recall_of(ids, live_truth, k)
+    m["max_dist_err"] = check_exact("headline after delete", data, queries,
+                                    ids, dists, metric)
+    if m["recall_at_10"] < 0.95:
+        raise AssertionError(f"headline after delete: recall {m}")
+    out["search_after_delete"] = m
+    launches["search_after_delete"] = m["launches"]
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    recycled = coord.vacuum()
+    torch.cuda.synchronize(dev)
+    out["vacuum_s"] = time.perf_counter() - t0
+    out["vacuum_relinked"] = coord.last_relinked
+    launches["vacuum"] = kernel.LAUNCHES
+    if recycled != 2 * DELETE_ROWS:
+        raise AssertionError(f"vacuum recycled {recycled} slots")
+    if any(mod.LAUNCHES for mod in kernels.values() if mod is not kernel):
+        raise AssertionError("vacuum launched another codec's kernel")
+    out["reachable_fraction"] = verify_graph(coord)["reachable_fraction"]
+    if out["reachable_fraction"] != 1.0:
+        raise AssertionError(f"after vacuum: {out['reachable_fraction']}")
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    coord.insert(picks.tolist(), data[picks])
+    torch.cuda.synchronize(dev)
+    out["reinsert_s"] = time.perf_counter() - t0
+    launches["reinsert"] = check_launches(kernels, kernel, "headline re-insert")
+    if not np.isin(coord.allocator.lookup_slots(picks), freed).all():
+        raise AssertionError("a re-inserted row missed the recycled slots")
+
+    ids, dists, m = timed_search(
+        torch, kernels, kernel, coord, queries, k, "headline after re-insert",
+        batch_size=batch,
+    )
+    m["recall_at_10"] = recall_of(ids, truth, k)
+    m["max_dist_err"] = check_exact("headline after re-insert", data,
+                                    queries, ids, dists, metric)
+    if m["recall_at_10"] < 0.95:
+        raise AssertionError(f"headline after re-insert: recall {m}")
+    out["search_after_reinsert"] = m
+    launches["search_after_reinsert"] = m["launches"]
+    out["launches"] = launches
+    log(f"headline lifecycle: after delete recall@10 "
+        f"{out['search_after_delete']['recall_at_10']:.4f}; vacuum "
+        f"{out['vacuum_s']:.2f} s, {out['vacuum_relinked']} relinked, "
+        f"reachable {out['reachable_fraction']}; re-insert "
+        f"{out['reinsert_s']:.2f} s; recall@10 {m['recall_at_10']:.4f}; "
+        f"INT4 launches {launches}")
+    return out
+
+
+def refine_hard(torch, dev, kernels, kernel, coord, queries, k, batch):
+    """bench.py:183-190: the post-build refine pass (with its reachability
+    repair), after one timed lock-step search of the built graph. Returns
+    that search's ids and the pass's metrics."""
+    ids, _, before = timed_search(
+        torch, kernels, kernel, coord, queries, k, "hard before refine",
+        batch_size=batch,
+    )
+    reset_counts(kernels)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rows = coord.refine()
+    torch.cuda.synchronize(dev)
+    out = {
+        "refine_s": time.perf_counter() - t0,
+        "rows": rows,
+        "relinked": coord.last_relinked,
+        "launches": check_launches(kernels, kernel, "hard refine"),
+        "search_before": before,
+    }
+    log(f"hard refine: {rows} rows in {out['refine_s']:.1f} s, "
+        f"{out['relinked']} relinked, {out['launches']} launches")
+    return ids, out
+
 
 def run_path(torch, dev, kernels, name, n, n_queries, k=10):
     """Bulk build + search of one main path through the Coordinator on the
@@ -1008,6 +1165,10 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
 
     batch = p["search_batch"]
     coord.search(queries[:batch], k)  # warm-up: first-call allocations
+    refine = None
+    if p.get("refine"):
+        ids_unrefined, refine = refine_hard(
+            torch, dev, kernels, kernel, coord, queries, k, batch)
     ids, dists, search = timed_search(
         torch, kernels, kernel, coord, queries, k, f"{name} lock-step",
         batch_size=batch,
@@ -1033,10 +1194,20 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
     min_recall = p.get("min_recall", 0.95)
     if min_recall is not None and recall < min_recall:
         raise AssertionError(f"{name}: recall@{k} = {recall} < {min_recall}")
+    if refine is not None:
+        refine["recall_at_10_before"] = recall_of(ids_unrefined, truth, k)
+        refine["recall_at_10_after"] = recall
+        log(f"{name}: recall@{k} {refine['recall_at_10_before']:.4f} before "
+            f"the refine pass, {recall:.4f} after")
     serving = {}
     if name in SERVE:
         serving = SERVE[name](torch, dev, kernels, kernel, coord, data,
                               queries, ids, truth, k, p["metric"], batch)
+    lifecycle = None
+    if p.get("lifecycle"):
+        lifecycle = lifecycle_headline(
+            torch, dev, kernels, kernel, coord, data, queries, truth, rng, k,
+            p["metric"], batch)
     del coord
     _free(torch)
     del data, queries
@@ -1061,7 +1232,125 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
         "launches_search": search["launches"] + launches_b1,
         "launches_serving": sum(m["launches"] for m in serving.values()),
         "serving": serving,
+        "launches_refine": refine["launches"] if refine else 0,
+        "refine": refine,
+        "launches_lifecycle": (
+            sum(lifecycle["launches"].values()) if lifecycle else 0),
+        "lifecycle": lifecycle,
     }
+
+
+def build_and_search(torch, dev, kernels, kernel, label, cfg, data, queries,
+                     max_batch, batch, min_recall=0.95, k=10):
+    """Bulk build + one timed lock-step search of a small configuration
+    (after an untimed warm-up batch); the codec's kernel (or none) must be
+    the only one to launch. Returns (ids, metrics)."""
+    from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    coord = Coordinator(cfg, initial_capacity=len(data))
+    coord.bulk_build(range(len(data)), data, max_batch=max_batch)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    launches_build = check_launches(kernels, kernel, f"{label} build")
+    coord.search(queries[:batch], k)  # warm-up
+    ids, dists, m = timed_search(torch, kernels, kernel, coord, queries, k,
+                                 label, batch_size=batch)
+    peak = torch.cuda.max_memory_allocated(dev)
+    vec = coord.arrays.vectors
+    m.update(
+        build_s=build_s, inserts_per_s=len(data) / build_s,
+        peak_mem_bytes=int(peak), launches_build=launches_build,
+        vector_bytes=vec.numel() * vec.element_size(),
+        max_dist_err=check_exact(label, data, queries, ids, dists,
+                                 cfg.metric_type.value),
+        recall_at_10=recall_of(ids, exact_topk(
+            torch, dev, data, queries, k, cfg.metric_type), k),
+    )
+    log(f"{label}: built in {build_s:.1f} s, recall@{k} "
+        f"{m['recall_at_10']:.4f}, peak {peak / 2**30:.3f} GiB")
+    if min_recall is not None and m["recall_at_10"] < min_recall:
+        raise AssertionError(f"{label}: recall@{k} {m['recall_at_10']}")
+    del coord
+    _free(torch)
+    return ids, m
+
+
+def small_config(metric, edge_type, dims, node_type="float32", l_search=100):
+    from duckdb_lm_diskann_tpu_torch.common.types import (
+        EdgeType,
+        MetricType,
+        VectorType,
+    )
+    from duckdb_lm_diskann_tpu_torch.core.config import LmDiskannConfig
+
+    cfg = LmDiskannConfig(
+        metric_type=MetricType.parse(metric), r=64, l_insert=128, alpha=1.2,
+        l_search=l_search, dimensions=dims,
+        node_vector_type=VectorType(node_type),
+        edge_type=EdgeType.parse(edge_type),
+    )
+    cfg.validate()
+    return cfg
+
+
+def run_codecs(torch, dev, kernels, n, n_queries):
+    """The four codecs without a TPU kernel on DEEP's corpus
+    (``make_corpus(n, 96, seed=0xDEE9)``, bench.py:782-788), cosine, R=64,
+    L_insert=128, L_search=100, build batches of 2048, search batches of
+    1024: FLOAT32, FLOAT16 and NONE must reach recall@10 0.95; FLOAT1BIT's
+    navigation is sign-only, so its recall is printed. No kernel launches."""
+    from duckdb_lm_diskann_tpu_torch.utils.corpora import make_corpus
+
+    gen, rng = make_corpus(n, 96, seed=0xDEE9)
+    data = gen(n)
+    queries = data[rng.integers(0, n, n_queries)] + 0.01 * rng.standard_normal(
+        (n_queries, 96)).astype(np.float32)
+    out = {}
+    for codec in ("float32", "float16", "none", "float1bit"):
+        _, out[codec] = build_and_search(
+            torch, dev, kernels, None, f"codec {codec}",
+            small_config("cosine", codec, 96), data, queries, 2048, 1024,
+            min_recall=None if codec == "float1bit" else 0.95,
+        )
+    return {"n": n, "dims": 96, "metric": "cosine", "queries": n_queries,
+            "codecs": out}
+
+
+def run_int8_nodes(torch, dev, kernels, n, n_queries):
+    """INT8 node vectors: the headline's corpus scaled and rounded into
+    [-128, 127], built with INT8 and with FLOAT32 node vectors, for L2 with
+    INT8 edges and for cosine with TERNARY edges. The two builds must
+    return identical rowids, and the INT8 vector table must take a quarter
+    of the FLOAT32 one's bytes; recall is printed."""
+    from duckdb_lm_diskann_tpu_torch.utils.corpora import make_corpus
+
+    gen, rng = make_corpus(n, 128, seed=0xBE7C4)
+    data = gen(n)
+    data = np.clip(np.round(data * (127.0 / np.abs(data).max())), -128, 127)
+    data = data.astype(np.float32)
+    queries = data[rng.integers(0, n, n_queries)] + rng.standard_normal(
+        (n_queries, 128)).astype(np.float32)
+    out = {}
+    for metric, codec in (("l2", "int8"), ("cosine", "ternary")):
+        runs = {}
+        for node in ("int8", "float32"):
+            runs[node] = build_and_search(
+                torch, dev, kernels, kernels[codec], f"{codec} {node} nodes",
+                small_config(metric, codec, 128, node), data, queries, 2048,
+                1024, min_recall=None,
+            )
+        (ids8, m8), (idsf, mf) = runs["int8"], runs["float32"]
+        if not np.array_equal(ids8, idsf):
+            bad = int((ids8 != idsf).any(-1).sum())
+            raise AssertionError(f"{codec}: INT8 nodes != FLOAT32 on {bad}")
+        if 4 * m8["vector_bytes"] != mf["vector_bytes"]:
+            raise AssertionError(f"{codec}: vector bytes {m8} {mf}")
+        out[codec] = {"metric": metric, "int8_nodes": m8,
+                      "float32_nodes": mf, "ids_identical": True}
+    return {"n": n, "dims": 128, "queries": n_queries, "runs": out}
 
 
 def main() -> int:
@@ -1075,6 +1364,12 @@ def main() -> int:
     # 262,144: the smoke's whole run stays near half its limit.
     ap.add_argument("--int8-n", type=int, default=262_144)
     ap.add_argument("--int8-queries", type=int, default=4096)
+    # 32,768: the whole run stays under 850 s (65,536 rows took it to
+    # 884 s on a slower H100 host).
+    ap.add_argument("--codec-n", type=int, default=32_768)
+    ap.add_argument("--codec-queries", type=int, default=4096)
+    ap.add_argument("--int8-nodes-n", type=int, default=65_536)
+    ap.add_argument("--int8-nodes-queries", type=int, default=4096)
     args = ap.parse_args()
 
     import torch
@@ -1130,14 +1425,22 @@ def main() -> int:
                                  args.gist_n, args.gist_queries),
         "int8_l2": run_path(torch, dev, kernels, "int8_l2", args.int8_n,
                             args.int8_queries),
+        "codecs": run_codecs(torch, dev, kernels, args.codec_n,
+                             args.codec_queries),
+        "int8_nodes": run_int8_nodes(torch, dev, kernels, args.int8_nodes_n,
+                                     args.int8_nodes_queries),
     }
     log(f"main paths took {time.perf_counter() - t_paths:.1f} s")
     for name in ("int4_headline", "gist_ternary", "int8_l2"):
         path = metrics[name]
         records[path["edge_type"]]["launches"] = (
             path["launches_build"] + path["launches_search"]
-            + path["launches_serving"]
+            + path["launches_serving"] + path["launches_lifecycle"]
         )
+    records["int4"]["launches"] += metrics["hard"]["launches_refine"]
+    for codec, run in metrics["int8_nodes"]["runs"].items():
+        for m in (run["int8_nodes"], run["float32_nodes"]):
+            records[codec]["launches"] += m["launches_build"] + m["launches"]
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "bench", "benchmarks",

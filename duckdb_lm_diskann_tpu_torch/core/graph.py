@@ -21,7 +21,9 @@ cannot shift uint32. ``graph_arrays_from_numpy`` and ``GraphArrays.to_numpy``
 convert at that boundary.
 
 Where the JAX package returns new arrays from every update (and donates
-buffers to reuse memory), the builder here writes these tensors in place.
+buffers to reuse memory), the builder here writes these tensors in place;
+the Coordinator hands it copies when a read view must not see the writes
+(``donate_buffers=False``).
 """
 
 from __future__ import annotations
@@ -200,15 +202,18 @@ def grow_graph_arrays(arrays: GraphArrays, new_capacity: int) -> GraphArrays:
 
 
 class SlotAllocator:
-    """Host-side rowid<->slot bookkeeping (a copy of the JAX package's,
-    whose module imports jax, as far as insert and rollback use it). Freed
-    slots wait in a pending deletion queue and are not reused: recycling
-    them is vacuum's job, not ported yet, so new slots come from the high
-    water mark."""
+    """Host-side rowid<->slot bookkeeping and free list (a copy of the JAX
+    package's, whose module imports jax). Freed slots are not reusable at
+    once: they wait in a pending deletion queue and return to the free list
+    only on vacuum (``process_deletion_queue``), which keeps zombie edges
+    from resolving to a new, different node in between. ``allocate`` pops
+    the free list (last in, first out) before it takes the high water mark,
+    so slot order equals the JAX package's."""
 
     def __init__(self) -> None:
         self.rowid_to_slot: dict[int, int] = {}
         self.slot_to_rowid: dict[int, int] = {}
+        self.free_slots: list[int] = []
         self.pending_deletion: list[int] = []
         self.high_water: int = 0
 
@@ -219,8 +224,9 @@ class SlotAllocator:
     def allocate(self, rowid: int) -> int:
         if rowid in self.rowid_to_slot:
             raise KeyError(f"row id {rowid} already in index")
-        slot = self.high_water
-        self.high_water += 1
+        slot = self.free_slots.pop() if self.free_slots else self.high_water
+        if slot == self.high_water:
+            self.high_water += 1
         self.rowid_to_slot[rowid] = slot
         self.slot_to_rowid[slot] = rowid
         return slot
@@ -244,3 +250,45 @@ class SlotAllocator:
         del self.slot_to_rowid[slot]
         self.pending_deletion.append(slot)
         return slot
+
+    def process_deletion_queue(self) -> list[int]:
+        """Vacuum: recycle the pending slots into the free list
+        (StorageManager::ProcessDeletionQueue)."""
+        recycled = self.pending_deletion
+        self.free_slots.extend(recycled)
+        self.pending_deletion = []
+        return recycled
+
+    def rowids_array(self, capacity: int) -> np.ndarray:
+        """Dense slot->rowid map (-1 for unmapped slots)."""
+        out = np.full(capacity, -1, np.int64)
+        for slot, rowid in self.slot_to_rowid.items():
+            out[slot] = rowid
+        return out
+
+    def lookup_slots(self, rowids) -> np.ndarray:
+        return np.asarray(
+            [self.rowid_to_slot.get(int(r), -1) for r in rowids], np.int32
+        )
+
+    def copy(self) -> "SlotAllocator":
+        out = SlotAllocator()
+        out.rowid_to_slot = dict(self.rowid_to_slot)
+        out.slot_to_rowid = dict(self.slot_to_rowid)
+        out.free_slots = list(self.free_slots)
+        out.pending_deletion = list(self.pending_deletion)
+        out.high_water = self.high_water
+        return out
+
+
+def derive_vector_type(vectors: np.ndarray) -> VectorType:
+    """The node-vector type of an array's dtype, as the reference derives
+    it from the ARRAY(FLOAT|TINYINT, N) column type
+    (db/LmDiskannIndex.cpp:137-154)."""
+    vt = VectorType.from_dtype(vectors.dtype)
+    if vt is VectorType.UNKNOWN:
+        raise TypeError(
+            f"Unsupported vector dtype {vectors.dtype}; expected float32 or "
+            "int8 (ARRAY(FLOAT, N) / ARRAY(TINYINT, N) in the reference)"
+        )
+    return vt

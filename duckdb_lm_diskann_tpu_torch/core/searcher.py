@@ -27,11 +27,13 @@ the loop condition only every ``_CHECK_EVERY`` hops (each read waits for
 the device); ``hops`` adds the device-side condition of every hop, so it
 counts exactly the iterations of the JAX while-loops.
 
-Frontier scoring goes through the codec's kernel module
-(``kernels.int4_frontier``, ``kernels.int8_frontier``,
+Frontier scoring of INT4, INT8 and TERNARY goes through the codec's kernel
+module (``kernels.int4_frontier``, ``kernels.int8_frontier``,
 ``kernels.ternary_frontier``): the Hopper kernel for CUDA tensors, its plain
-PyTorch version for CPU tensors. At E > 1 the kernels take B*E rows (the
-visited nodes flattened, each query repeated E times). TERNARY scores are
+PyTorch version for CPU tensors. FLOAT32, FLOAT16, FLOAT1BIT and NONE have
+no TPU kernel in the JAX package and are plain gathers here too. At E > 1
+the kernels take B*E rows (the visited nodes flattened, each query
+repeated E times). TERNARY scores are
 integers mapped to distances by ``similarity_to_distance`` after the
 kernel, as in the JAX package.
 """
@@ -48,7 +50,7 @@ from ..kernels.int8_frontier import int8_frontier_scores
 from ..kernels.ternary_frontier import ternary_frontier_scores
 from ..ops import topk as topk_ops
 from ..ops.distance import pairwise_distance, similarity_to_distance
-from ..ops.ternary import encode_ternary
+from ..ops.ternary import encode_ternary, popcount32
 from .graph import GraphArrays, GraphParams
 
 INF = float("inf")
@@ -88,11 +90,13 @@ def _score_edges(
     params: GraphParams,
     cur: torch.Tensor,  # i32[N] current node slots
     queries: torch.Tensor,  # f32[N, D]
-    q_planes: tuple[torch.Tensor, torch.Tensor] | None,  # TERNARY only
+    q_planes: tuple[torch.Tensor, torch.Tensor] | None,  # sign-plane codecs
+    nbrs: torch.Tensor,  # i32[N, R] the nodes' neighbor slots
 ) -> torch.Tensor:
     """Approximate distances [N, R] from the visited nodes' cached edge
     codes — no second gather for frontier scoring
-    (vectordiskann.c:1370-1396)."""
+    (vectordiskann.c:1370-1396). INT4, INT8 and TERNARY go through their
+    kernels; the other codecs are plain gathers, as in the JAX package."""
     et = params.edge_type
     if et is EdgeType.INT4:
         return int4_frontier_scores(
@@ -109,15 +113,27 @@ def _score_edges(
             cur, *q_planes, arrays.edge_pos, arrays.edge_neg
         )
         return similarity_to_distance(sim.float(), params.metric)
-    raise NotImplementedError(
-        f"edge type {et.value} is not ported yet "
-        "(ROADMAP queue 1, item 8: the other codecs)"
-    )
+    if et is EdgeType.FLOAT32 or et is EdgeType.FLOAT16:
+        vecs = arrays.edge_f32.index_select(0, cur).float()  # [N, R, D]
+        return pairwise_distance(queries[:, None, :], vecs, params.metric)
+    if et is EdgeType.FLOAT1BIT:
+        # Binarized signed dot: with sign bits (bit = v > 0) the dot over
+        # +/-1 values is D - 2 * pop(q XOR e). Padding bits are zero in
+        # both planes, so whole words XOR exactly. Cosine only.
+        e_pos = arrays.edge_pos.index_select(0, cur)  # [N, R, W]
+        mismatch = popcount32(q_planes[0][:, None, :] ^ e_pos).sum(-1)
+        sim = (params.dims - 2 * mismatch).float()
+        return similarity_to_distance(sim, params.metric)
+    # EdgeType.NONE: exact traversal over the neighbors' own vectors (the
+    # C++ Searcher, core/Searcher.cpp:168-173).
+    vecs = arrays.vectors[nbrs.clamp_min(0).long()].float()  # [N, R, D]
+    return pairwise_distance(queries[:, None, :], vecs, params.metric)
 
 
 def _query_planes(params: GraphParams, queries: torch.Tensor):
-    """TERNARY query planes, encoded once per search, not once per hop."""
-    if params.edge_type is EdgeType.TERNARY:
+    """Query sign planes (TERNARY, FLOAT1BIT), encoded once per search,
+    not once per hop."""
+    if params.edge_type in (EdgeType.TERNARY, EdgeType.FLOAT1BIT):
         return encode_ternary(queries)
     return None
 
@@ -204,7 +220,7 @@ def _hop(
     if not assume_all_valid:
         live = live & arrays.valid[nbrs.clamp_min(0).long()]
     live = live & active.reshape(-1, 1)
-    edge_dist = _score_edges(arrays, params, cur_f, q_f, p_f)
+    edge_dist = _score_edges(arrays, params, cur_f, q_f, p_f, nbrs)
     nbrs = nbrs.reshape(B, E * R)
 
     # Skip neighbors already in the beam or already-visited seeds (see the

@@ -129,10 +129,17 @@ def test_empty_index_and_capacity_growth(rng):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="float1bit"):
-        Coordinator(
-            _config(8, "float1bit", metric="cosine"), device="cpu"
-        )
+    """Every codec is ported: FLOAT1BIT builds with cosine, and the one
+    refusal left is the config's own (FLOAT1BIT is cosine-only), a
+    ValueError as in the JAX package."""
+    coord = Coordinator(_config(8, "float1bit", metric="cosine"), device="cpu")
+    assert coord.params.edge_type is EdgeType.FLOAT1BIT
+    cfg = LmDiskannConfig(
+        metric_type=MetricType.IP, r=8, l_insert=16, dimensions=8,
+        node_vector_type=VectorType.FLOAT32, edge_type=EdgeType.FLOAT1BIT,
+    )
+    with pytest.raises(ValueError, match="1-bit"):
+        Coordinator(cfg, device="cpu")
 
 
 def test_config_of_the_jax_package_is_refused():

@@ -36,9 +36,12 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    # common (1), core (5), experiments (1), kernels (5), ops (4), utils (3)
+    # common (1), core (5), experiments (4), kernels (5), ops (4), utils (5)
     # and the six subpackages themselves.
-    assert len(names) >= 25, names
+    assert len(names) >= 30, names
     pkg = "duckdb_lm_diskann_tpu_torch."
-    for mod in ("experiments.profile_hop", "utils.roofline", "kernels.row_gather"):
+    for mod in (
+        "experiments.profile_hop", "experiments.profile_delete",
+        "utils.roofline", "utils.verify", "kernels.row_gather",
+    ):
         assert pkg + mod in names
