@@ -73,7 +73,22 @@ Phases (each raises on failure, so the script exits non-zero):
    deleted row may come back; recall@10 against a scan of the live rows),
    vacuums (2,000 slots recycled; every live node reachable,
    ``utils/verify.py``), re-inserts the 2,000 rows (each into a recycled
-   slot) and searches again against the whole corpus.
+   slot) and searches again against the whole corpus. Then persistence
+   and the SQL surface on that index (``store_db_headline``): a full
+   ``save_index`` into ``<tmp>/db.lmd_idx/headline`` (seconds, bytes of
+   graph.lmd, GB/s; ``<tmp>`` must hold twice the checkpoint); a Database
+   ``connect(<tmp>/db)`` whose ``create_index`` over a table of the corpus
+   reopens the checkpoint with no build and no launch, into tables, maps
+   and entry equal to the saved index's (as a checkpoint gives them back)
+   and answering the queries with the pre-save ids and distances; 16
+   single ``knn`` queries (index scan plan, ids == the Coordinator's, B=1
+   ms), ``knn_join`` over the queries (QPS, recall@10), 16 brute-force
+   ``knn`` scans of a table with no index (== the exact top-k), the index
+   pragma; 1,000 rows deleted through the table and an incremental
+   ``checkpoint`` that writes exactly the dirtied blocks; the CLI's
+   ``bench`` in a subprocess on that checkpoint (recall@10 >= 0.95 against
+   the live rows, no deleted row); every ``tests/sql`` file replayed on
+   the card. Every block file must be the native store.
 5. The codecs without a TPU kernel: DEEP's corpus (``make_corpus(N, 96,
    seed=0xDEE9)``), cosine, R=64, L_insert=128, L_search=100, 4096
    queries, built and searched with FLOAT32, FLOAT16, NONE and FLOAT1BIT
@@ -815,6 +830,7 @@ PATHS = {
     "int4_headline": dict(
         dims=128, seed=0xBE7C4, metric="l2", edge_type="int4", l_search=100,
         max_batch=2048, search_batch=1024, codec="int4", lifecycle=True,
+        store_db=True,
     ),
     "hard": dict(
         dims=128, seed=0x4A2D, metric="l2", edge_type="int4", l_search=100,
@@ -1081,6 +1097,278 @@ def lifecycle_headline(torch, dev, kernels, kernel, coord, data, queries,
     return out
 
 
+# Single queries of the SQL phase: this many through the index scan, then
+# as many brute-force scans of the whole column of a table with no index.
+SQL_SINGLE_QUERIES = 16
+
+
+def _expected_after_reload(torch, coord, name, saved):
+    """``saved`` (a graph table of ``coord`` up to high water) as a
+    checkpoint gives it back: a dead slot's block is written zeroed (its
+    neighbor ids decode as row 0, which maps to row 0's slot when row 0
+    lives), and an edge into a dead row is written empty."""
+    hw = coord.allocator.high_water
+    valid = coord.arrays.valid[:hw]
+    if name == "valid":
+        return saved
+    if name == "dirty_rows":
+        return torch.zeros_like(saved)
+    if name == "neighbors":
+        live = torch.as_tensor(coord._slot_rowids >= 0, device=saved.device)
+        kept = torch.where(
+            (saved >= 0) & live[saved.clamp_min(0).long()], saved, -1)
+        dead = coord.allocator.rowid_to_slot.get(0, -1)
+        return torch.where(valid[:, None], kept, torch.full_like(saved, dead))
+    mask = valid.view((-1,) + (1,) * (saved.dim() - 1))
+    return torch.where(mask, saved, torch.zeros_like(saved))
+
+
+def check_reopened(torch, coord, reopened):
+    """Every table up to high water, the allocator maps and the entry of
+    ``reopened`` equal ``coord``'s as its checkpoint gives them back."""
+    hw = coord.allocator.high_water
+    for name in type(coord.arrays)._fields:
+        want = _expected_after_reload(
+            torch, coord, name, getattr(coord.arrays, name)[:hw])
+        got = getattr(reopened.arrays, name)[:hw]
+        if got.dtype != want.dtype or not bool((got == want).all()):
+            raise AssertionError(f"reopened index: table {name} differs")
+    a, b = coord.allocator, reopened.allocator
+    for key in ("rowid_to_slot", "slot_to_rowid", "free_slots",
+                "pending_deletion", "high_water"):
+        if getattr(a, key) != getattr(b, key):
+            raise AssertionError(f"reopened index: allocator {key} differs")
+    a, b = coord._slot_rowids, reopened._slot_rowids
+    if not (np.array_equal(a[:hw], b[:hw]) and (a[hw:] < 0).all()
+            and (b[hw:] < 0).all()):
+        raise AssertionError("reopened index: slot -> rowid map differs")
+    if (coord.entry_slot, coord.entry_rowid) != (
+            reopened.entry_slot, reopened.entry_rowid):
+        raise AssertionError("reopened index: entry point differs")
+
+
+def store_db_headline(torch, dev, kernels, kernel, coord, data, queries,
+                      truth, rng, k, batch, options):
+    """Persistence and the SQL surface on the headline index, after its
+    lifecycle: a full save into ``<tmp>/db.lmd_idx/headline``; a Database
+    on ``<tmp>/db`` whose ``create_index`` reopens that checkpoint (no
+    build) into tables equal to the saved ones, answering the headline
+    queries with the pre-save ids and distances; single ``knn`` queries
+    through the index scan, ``knn_join`` over the queries, brute-force
+    scans of a table with no index, the index pragma; a 1,000-row delete
+    and an incremental ``checkpoint``; the CLI's ``bench`` in a
+    subprocess on the incremental checkpoint; every ``tests/sql`` file
+    replayed on the card. Returns its metrics and the launches of each
+    kernel per step (the CLI's own process is not counted)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
+    from duckdb_lm_diskann_tpu_torch.db import planner
+    from duckdb_lm_diskann_tpu_torch.db.database import connect
+    from duckdb_lm_diskann_tpu_torch.db.sqltest import run_sqllogic_file
+    from duckdb_lm_diskann_tpu_torch.store import checkpoint
+    from duckdb_lm_diskann_tpu_torch.store.block_codec import resolve_layout
+
+    root = Path(__file__).resolve().parent
+    out, launches = {}, {}
+    n, hw = len(data), coord.allocator.high_water
+    block = resolve_layout(coord.config).block_size
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_store_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        out.update(tmp_dir=str(tmp), tmp_free_bytes=free, block_bytes=block)
+        log(f"store: {tmp} has {free / 1e9:.1f} GB free; the checkpoint "
+            f"takes {hw * block / 1e9:.2f} GB")
+        if free < 2 * hw * block:
+            raise AssertionError(f"store: {free} bytes free in {tmp}")
+
+        ids0, d0, out["search_before_save"] = timed_search(
+            torch, kernels, kernel, coord, queries, k, "headline before save",
+            batch_size=batch)
+        launches["search_before_save"] = out["search_before_save"]["launches"]
+
+        index_dir = tmp / "db.lmd_idx" / "headline"
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        saved = checkpoint.save_index(coord, index_dir)
+        out["save_s"] = time.perf_counter() - t0
+        out["graph_bytes"] = (index_dir / "graph.lmd").stat().st_size
+        out["save_gb_per_s"] = out["graph_bytes"] / out["save_s"] / 1e9
+        out["save"] = saved
+        if (saved["incremental"] or saved["backend"] != "native"
+                or saved["blocks_written"] != hw or saved["high_water"] != hw):
+            raise AssertionError(f"store: full save {saved}")
+        log(f"store: full save of {saved['blocks_written']} blocks "
+            f"(== high water {hw}), {out['graph_bytes']} bytes in "
+            f"{out['save_s']:.2f} s ({out['save_gb_per_s']:.2f} GB/s), "
+            f"{saved['backend']} block store")
+
+        db = connect(str(tmp / "db"))
+        t = db.create_table("headline", {"vec": data})
+        live = np.fromiter(sorted(coord.allocator.rowid_to_slot), np.int64)
+        if not np.array_equal(t.row_ids, live):
+            raise AssertionError("store: table rows != the index's live rows")
+
+        def no_build(self, *a, **kw):
+            raise AssertionError("create_index rebuilt the checkpointed index")
+
+        reset_counts(kernels)
+        real_build = Coordinator.bulk_build
+        Coordinator.bulk_build = no_build
+        try:
+            t0 = time.perf_counter()
+            idx = db.create_index("headline", t, "vec", options=options)
+            torch.cuda.synchronize(dev)
+            out["reopen_s"] = time.perf_counter() - t0
+        finally:
+            Coordinator.bulk_build = real_build
+        if any(m.LAUNCHES for m in kernels.values()):
+            raise AssertionError("store: create_index launched a kernel")
+        reopened = idx.coordinator
+        if reopened.device.type != "cuda":
+            raise AssertionError(f"store: reopened on {reopened.device}")
+        t0 = time.perf_counter()
+        check_reopened(torch, coord, reopened)
+        out["check_s"] = time.perf_counter() - t0
+        log(f"store: create_index reopened the checkpoint in "
+            f"{out['reopen_s']:.2f} s (warm page cache, no build, no "
+            "launches); tables, maps and entry equal the saved index's "
+            f"(compared in {out['check_s']:.1f} s)")
+
+        ids1, d1, out["search_reopened"] = timed_search(
+            torch, kernels, kernel, reopened, queries, k,
+            "headline reopened", batch_size=batch)
+        launches["search_reopened"] = out["search_reopened"]["launches"]
+        if not (np.array_equal(ids1, ids0) and np.array_equal(d1, d0)):
+            bad = int((ids1 != ids0).any(-1).sum())
+            raise AssertionError(
+                f"store: reopened search differs on {bad} queries")
+
+        reset_counts(kernels)
+        lat, got = [], []
+        for i in range(SQL_SINGLE_QUERIES):
+            t0 = time.perf_counter()
+            res, plan = db.knn(t, "vec", queries[i], k, return_plan=True)
+            lat.append(time.perf_counter() - t0)
+            if not isinstance(plan, planner.LogicalIndexScan):
+                raise AssertionError(f"store: knn plan {type(plan).__name__}")
+            got.append(res["row_ids"])
+        launches["knn"] = check_launches(kernels, kernel, "store knn")
+        out["knn_b1_ms_median"] = 1e3 * float(np.median(lat))
+        for i, ids in enumerate(got):
+            want, _ = reopened.search(queries[i : i + 1], k)
+            if not np.array_equal(ids, want[0][want[0] >= 0]):
+                raise AssertionError(f"store: knn query {i} != Coordinator")
+
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res, plan = db.knn_join(t, "vec", queries, k, return_plan=True)
+        secs = time.perf_counter() - t0
+        launches["knn_join"] = check_launches(kernels, kernel, "store knn_join")
+        if not isinstance(plan, planner.LogicalKnnJoin):
+            raise AssertionError(f"store: knn_join plan {type(plan).__name__}")
+        out["knn_join_qps"] = len(queries) / secs
+        out["knn_join_recall_at_10"] = recall_of(
+            res["row_ids"].reshape(-1, k), truth, k)
+        if out["knn_join_recall_at_10"] < 0.95:
+            raise AssertionError(f"store: knn_join recall {out}")
+
+        scan = db.create_table("headline_scan", {"vec": data})
+        reset_counts(kernels)
+        lat = []
+        for i in range(SQL_SINGLE_QUERIES):
+            t0 = time.perf_counter()
+            res, plan = db.knn(scan, "vec", queries[i], k, return_plan=True)
+            lat.append(time.perf_counter() - t0)
+            if not isinstance(plan, planner.LogicalTopN):
+                raise AssertionError(f"store: scan plan {type(plan).__name__}")
+            if not np.array_equal(res["row_ids"], truth[i]):
+                raise AssertionError(f"store: scan query {i} != exact top-k")
+        if any(m.LAUNCHES for m in kernels.values()):
+            raise AssertionError("store: the brute-force scan launched")
+        out["scan_ms_median"] = 1e3 * float(np.median(lat))
+        (info,) = db.pragma_lm_diskann_index_info()
+        if info["count"] != n or info["index_name"] != "headline":
+            raise AssertionError(f"store: pragma {info}")
+        out["pragma"] = {key: info[key] for key in (
+            "count", "capacity", "approx_memory_size", "block_size",
+            "degree_stats")}
+        log(f"store: knn B=1 median {out['knn_b1_ms_median']:.2f} ms "
+            f"(index scan, ids == Coordinator); knn_join "
+            f"{out['knn_join_qps']:.0f} QPS, recall@10 "
+            f"{out['knn_join_recall_at_10']:.4f}; brute-force scan median "
+            f"{out['scan_ms_median']:.1f} ms (== exact top-k); pragma "
+            f"{out['pragma']}")
+
+        victims = rng.choice(n, DELETE_ROWS, replace=False)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        t.delete(victims.tolist())
+        torch.cuda.synchronize(dev)
+        out["delete_s"] = time.perf_counter() - t0
+        dirty = int(reopened.arrays.dirty_rows[:hw].sum())
+        t0 = time.perf_counter()
+        saved = db.checkpoint()["headline.headline"]
+        out["incremental_s"] = time.perf_counter() - t0
+        out["incremental"] = saved
+        if (not saved["incremental"] or saved["backend"] != "native"
+                or saved["blocks_written"] != dirty or dirty >= hw):
+            raise AssertionError(f"store: incremental save {saved}, {dirty}")
+        log(f"store: deleted {DELETE_ROWS} rows in {out['delete_s']:.2f} s; "
+            f"incremental checkpoint wrote the {dirty} dirty blocks of {hw} "
+            f"in {out['incremental_s']:.2f} s")
+
+        q_path, ids_path = tmp / "queries.npy", tmp / "cli_ids.npy"
+        np.save(q_path, queries)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{_PKG}.cli", "bench", "--db",
+             str(tmp / "db"), "--index", "headline", "--queries", str(q_path),
+             "--k", str(k), "--out", str(ids_path)],
+            cwd=root, capture_output=True, text=True, timeout=900,
+        )
+        out["cli_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"store: cli bench failed\n{proc.stderr}")
+        bench = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["cli_bench"] = bench
+        cli_ids = np.load(ids_path)
+        if (bench["recall_at_k"] < 0.95 or not bench["device"].startswith("cuda")
+                or np.isin(cli_ids, victims).any()):
+            raise AssertionError(f"store: cli bench {bench}")
+        log(f"store: cli bench (a process of its own, {out['cli_s']:.1f} s "
+            f"with its load) {bench['qps']} QPS, recall@10 "
+            f"{bench['recall_at_k']} vs the live rows, no deleted row")
+
+        files = {}
+        sql_launches = dict.fromkeys(("int4", "ternary", "int8"), 0)
+        t0 = time.perf_counter()
+        for path in sorted((root / "tests" / "sql").glob("*.sql.test")):
+            reset_counts(kernels)
+            files[path.name] = run_sqllogic_file(path)
+            for codec in sql_launches:
+                sql_launches[codec] += kernels[codec].LAUNCHES
+        if len(files) < 22 or not (sql_launches["ternary"]
+                                   and sql_launches["int8"]):
+            raise AssertionError(f"store: sql files {files} {sql_launches}")
+        out["sql_files"] = files
+        out["sql_files_s"] = time.perf_counter() - t0
+        launches["sql_files"] = sql_launches
+        log(f"store: {len(files)} SQL files replayed on the card in "
+            f"{out['sql_files_s']:.1f} s, {sum(files.values())} directives "
+            f"({files}); launches {sql_launches}")
+        del db, t, scan, idx, reopened
+    finally:
+        shutil.rmtree(tmp)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"store: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def refine_hard(torch, dev, kernels, kernel, coord, queries, k, batch):
     """bench.py:183-190: the post-build refine pass (with its reachability
     repair), after one timed lock-step search of the built graph. Returns
@@ -1208,6 +1496,14 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
         lifecycle = lifecycle_headline(
             torch, dev, kernels, kernel, coord, data, queries, truth, rng, k,
             p["metric"], batch)
+    store = None
+    if p.get("store_db"):
+        options = {"metric": p["metric"], "r": cfg.r, "l_insert": cfg.l_insert,
+                   "alpha": cfg.alpha, "l_search": cfg.l_search,
+                   "edge_type": p["edge_type"]}
+        store = store_db_headline(
+            torch, dev, kernels, kernel, coord, data, queries, truth, rng, k,
+            batch, options)
     del coord
     _free(torch)
     del data, queries
@@ -1237,6 +1533,10 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
         "launches_lifecycle": (
             sum(lifecycle["launches"].values()) if lifecycle else 0),
         "lifecycle": lifecycle,
+        "launches_store_db": (
+            sum(v for key, v in store["launches"].items() if key != "sql_files")
+            if store else 0),
+        "store_db": store,
     }
 
 
@@ -1436,7 +1736,11 @@ def main() -> int:
         records[path["edge_type"]]["launches"] = (
             path["launches_build"] + path["launches_search"]
             + path["launches_serving"] + path["launches_lifecycle"]
+            + path["launches_store_db"]
         )
+    store = metrics["int4_headline"]["store_db"]
+    for codec, count in store["launches"]["sql_files"].items():
+        records[codec]["launches"] += count
     records["int4"]["launches"] += metrics["hard"]["launches_refine"]
     for codec, run in metrics["int8_nodes"]["runs"].items():
         for m in (run["int8_nodes"], run["float32_nodes"]):

@@ -12,7 +12,9 @@ Counterpart of ``duckdb_lm_diskann_tpu/core/coordinator.py``:
   * the lifecycle: ``delete`` (eager back-edge repair and orphan rescue),
     ``update``, ``vacuum`` (slot recycling + ``repair_reachability``),
     ``snapshot`` (a read-only copy), ``handle_commit_drop`` and
-    ``get_in_memory_size``.
+    ``get_in_memory_size``;
+  * persistence hooks: an injected ``shadow_service`` logs every committed
+    insert batch and delete (store/shadow.py, store/checkpoint.py).
 
 The index lives on the card: ``Coordinator(config, capacity)`` keeps every
 tensor on CUDA and raises if CUDA is not available; ``device="cpu"`` asks
@@ -137,6 +139,11 @@ class Coordinator:
         # False while readers hold ReadViews: mutations then write copies
         # (see _writable), the JAX package's non-donating twins.
         self.donate_buffers: bool = True
+        # The delta log of the index's directory (store/shadow.py's
+        # ShadowStorageService), injected by the db layer: every committed
+        # insert batch and delete is logged, so a reopened index can replay
+        # what its last checkpoint missed (store/checkpoint.recover).
+        self.shadow_service = None
 
     @property
     def count(self) -> int:
@@ -169,6 +176,7 @@ class Coordinator:
         snap._needs_reachability_repair = False
         snap.last_search_stats = None
         snap.donate_buffers = False
+        snap.shadow_service = None
         snap._frozen = True
         return snap
 
@@ -281,6 +289,9 @@ class Coordinator:
         sr = self._slot_rowids.copy()
         sr[slots] = np.asarray(rowids, np.int64)
         self._slot_rowids = sr
+        # Only a committed batch is logged: a rolled-back insert raised above.
+        if self.shadow_service is not None:
+            self.shadow_service.log_insert_batch(rowids, slots.tolist())
         self.dirty = True
         self._needs_reachability_repair = True
 
@@ -636,6 +647,8 @@ class Coordinator:
         sr = self._slot_rowids.copy()
         sr[del_slots] = INVALID_ROW_ID
         self._slot_rowids = sr
+        if self.shadow_service is not None:
+            self.shadow_service.log_delete_batch(present)
         if self.entry_slot in set(del_slots.tolist()):
             self.entry_slot, self.entry_rowid = self._select_fallback_entry()
         self.dirty = True

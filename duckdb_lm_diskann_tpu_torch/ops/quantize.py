@@ -121,29 +121,34 @@ def encode_int4_np(vectors: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 def i4_planar_from_packed_np(packed: np.ndarray, d: int) -> np.ndarray:
     """HOST: byte-interleaved u8 [..., ceil(D/2)] -> planar u32 words
-    [..., ceil(D/8)]."""
-    u = np.asarray(packed).astype(np.uint32)
+    [..., ceil(D/8)] (the JAX package's words; pad nibbles zero).
+
+    Byte k of a little-endian word w holds nibble slots 2k (low) and 2k+1
+    (high), i.e. dims 2k*DW + w and (2k+1)*DW + w, so the words are
+    assembled from bytes: 8-bit torch ops on the CPU, no 32-bit shifts."""
+    u = torch.from_numpy(np.ascontiguousarray(packed, np.uint8))
+    lead, dh = tuple(u.shape[:-1]), u.shape[-1]
     dw = words_per_i4(d)
-    nib = np.zeros(u.shape[:-1] + (8 * dw,), np.uint32)
-    nib[..., 0 : 2 * u.shape[-1] : 2] = u & 0xF
-    nib[..., 1 : 2 * u.shape[-1] : 2] = u >> 4
+    nib = torch.zeros(lead + (8 * dw,), dtype=torch.uint8)  # dim s*DW + w
+    nib[..., 0 : 2 * dh : 2] = u & 0xF
+    nib[..., 1 : 2 * dh : 2] = u >> 4
     nib[..., d:] = 0  # the odd-D pad nibble must not leak into the words
-    nib = nib.reshape(*u.shape[:-1], 8, dw)
-    words = nib[..., 0, :].copy()
-    for s in range(1, 8):
-        words |= nib[..., s, :] << np.uint32(4 * s)
-    return words
+    by_word = nib.reshape(lead + (8, dw)).transpose(-1, -2)  # [..., w, s]
+    word_bytes = (by_word[..., 0::2] | (by_word[..., 1::2] << 4)).contiguous()
+    return word_bytes.numpy().view("<u4").reshape(lead + (dw,)).astype(np.uint32)
 
 
 def i4_packed_from_planar_np(words: np.ndarray, d: int) -> np.ndarray:
-    """HOST: planar words (u32, or int32 with the same bits) -> packed u8."""
-    w = np.asarray(words).astype(np.uint32)
-    dw = w.shape[-1]
-    nib = np.zeros(w.shape[:-1] + (8 * dw,), np.uint32)
-    for s in range(8):
-        nib[..., s * dw : (s + 1) * dw] = (w >> np.uint32(4 * s)) & 0xF
-    dh = half_dims(d)
-    nib = nib[..., : 2 * dh]
-    if 2 * dh > d:
-        nib[..., d:] = 0
-    return (nib[..., 0::2] | (nib[..., 1::2] << 4)).astype(np.uint8)
+    """HOST: planar words (u32, or int32 with the same bits) -> packed u8,
+    the inverse of i4_planar_from_packed_np (an odd D's pad nibble is
+    zero)."""
+    w = np.ascontiguousarray(words)
+    w = w.view(np.uint32) if w.dtype == np.int32 else w.astype(np.uint32)
+    lead, dw = w.shape[:-1], w.shape[-1]
+    b = w.astype("<u4", copy=False).view(np.uint8).reshape(lead + (dw, 4))
+    b = torch.from_numpy(b)
+    by_word = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(lead + (dw, 8))
+    nib = by_word.transpose(-1, -2).reshape(lead + (8 * dw,))  # dim s*DW + w
+    nib = nib[..., : 2 * half_dims(d)].clone()
+    nib[..., d:] = 0
+    return (nib[..., 0::2] | (nib[..., 1::2] << 4)).numpy()

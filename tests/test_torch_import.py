@@ -22,6 +22,8 @@ leaked = sorted(
     if m.split(".")[0] in ("jax", "jaxlib", "bench", "duckdb_lm_diskann_tpu")
 )
 assert not leaked, leaked
+# Importing builds nothing: the native block store loads at first use.
+assert sys.modules[pkg.__name__ + ".store.file_service"]._lib is None
 print(" ".join(names))
 """
 
@@ -36,12 +38,15 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    # common (1), core (5), experiments (4), kernels (5), ops (4), utils (5)
-    # and the six subpackages themselves.
-    assert len(names) >= 30, names
+    # cli, common (1), core (5), db (6), experiments (5), kernels (5),
+    # ops (4), store (4), utils (5) and the eight subpackages themselves.
+    assert len(names) >= 44, names
     pkg = "duckdb_lm_diskann_tpu_torch."
     for mod in (
         "experiments.profile_hop", "experiments.profile_delete",
         "utils.roofline", "utils.verify", "kernels.row_gather",
+        "store.block_codec", "store.file_service", "store.shadow",
+        "store.checkpoint", "db.settings", "db.functions", "db.index",
+        "db.planner", "db.database", "db.sqltest", "cli",
     ):
         assert pkg + mod in names

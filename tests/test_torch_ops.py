@@ -222,6 +222,24 @@ def test_int4_numpy_helpers_match_jax(rng, d):
     np.testing.assert_array_equal(words.numpy().view(np.uint32), planar)
 
 
+@pytest.mark.parametrize("d", [1, 7, 8, 9, 15, 100, 128, 129])
+def test_int4_layout_converters_match_jax_on_any_bits(rng, d):
+    """The port's byte-wise converters against the JAX package's 32-bit
+    loops, on every bit pattern (not only encoder output) and two leading
+    shapes; int32 words convert as their uint32 bits."""
+    for lead in ((6,), (3, 5)):
+        packed = rng.integers(0, 256, lead + ((d + 1) // 2,)).astype(np.uint8)
+        np.testing.assert_array_equal(
+            tq.i4_planar_from_packed_np(packed, d),
+            jq.i4_planar_from_packed_np(packed, d),
+        )
+        words = rng.integers(0, 2**32, lead + ((d + 7) // 8,), dtype=np.uint64)
+        words = words.astype(np.uint32)
+        want = jq.i4_packed_from_planar_np(words, d)
+        for w in (words, words.view(np.int32)):
+            np.testing.assert_array_equal(tq.i4_packed_from_planar_np(w, d), want)
+
+
 def _ties_and_pads(rng, shape, n_ids):
     """Distances on a coarse grid (many exact ties), ids with duplicates,
     and (+inf, -1) pads."""
