@@ -5,6 +5,7 @@ Usage, from the repository root:
 
     python3 chip_smoke.py [--n N] [--queries Q] [--hard-n N] [--gist-n N]
                           [--int8-n N] [--codec-n N] [--int8-nodes-n N]
+    python3 chip_smoke.py --multihost-only   # phase 4's multi-process part
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -60,7 +61,7 @@ Phases (each raises on failure, so the script exits non-zero):
    - GIST: ``make_corpus(N, 960, seed=0x61577)``, cosine, default codec
      (TERNARY), R=64, L_insert=128, build batches of 1024; 1024 queries,
      top-10 at L_search=128, search batches of 256 (``--gist-n``, default
-     1,000,000);
+     500,000: the ``parallel`` phase took the room of the other half);
    - INT8: ``make_corpus(N, 128)``, L2, default codec (INT8), R=64,
      L_insert=128, build batches of 2048; top-10 at L_search=100, search
      batches of 1024 (``--int8-n``, default 262,144).
@@ -88,7 +89,26 @@ Phases (each raises on failure, so the script exits non-zero):
    ``checkpoint`` that writes exactly the dirtied blocks; the CLI's
    ``bench`` in a subprocess on that checkpoint (recall@10 >= 0.95 against
    the live rows, no deleted row); every ``tests/sql`` file replayed on
-   the card. Every block file must be the native store.
+   the card. Every block file must be the native store. Then the sharded
+   engines on the headline (``parallel_headline``): the index in four row
+   blocks on the card (``GlobalShardedIndex``), whose search at the
+   headline's batches must equal the Coordinator's (ids, distances,
+   hops) with the INT4 kernel launched once a block; the persistence
+   phase's checkpoint loaded into row blocks (``load_global_sharded``),
+   answering with the CLI's ids; a disjoint ``ShardedIndex`` of 4 x N/4
+   rows (its answer == the merge of its shards' own searches, recall@10
+   >= 0.95, exact distances, ``save`` -> ``load_sharded`` -> the same
+   answer); ``distributed_build`` of the first 65,536 rows, then 1,000
+   rows deleted and a vacuum, every table and the entry equal to a
+   Coordinator's after the same steps; and ``torch.cuda.device_count()``
+   processes (this script with ``--multihost-worker``, NCCL) of two
+   shards each over the first 262,144 rows, whose answer must equal one
+   process's ``ShardedIndex`` over the same shards; then, in the same
+   processes, one global graph of the first 16,384 rows in two row blocks
+   a process (``make_global_mesh``, rows reassembled by NCCL
+   ``all_reduce``), whose search, ``distributed_build``, delete and
+   shard-parallel save -> ``load_global_sharded`` must equal each
+   process's own Coordinator.
 5. The codecs without a TPU kernel: DEEP's corpus (``make_corpus(N, 96,
    seed=0xDEE9)``), cosine, R=64, L_insert=128, L_search=100, 4096
    queries, built and searched with FLOAT32, FLOAT16, NONE and FLOAT1BIT
@@ -830,7 +850,7 @@ PATHS = {
     "int4_headline": dict(
         dims=128, seed=0xBE7C4, metric="l2", edge_type="int4", l_search=100,
         max_batch=2048, search_batch=1024, codec="int4", lifecycle=True,
-        store_db=True,
+        store_db=True, parallel=True,
     ),
     "hard": dict(
         dims=128, seed=0x4A2D, metric="l2", edge_type="int4", l_search=100,
@@ -1148,7 +1168,7 @@ def check_reopened(torch, coord, reopened):
 
 
 def store_db_headline(torch, dev, kernels, kernel, coord, data, queries,
-                      truth, rng, k, batch, options):
+                      truth, rng, k, batch, options, keep_dir=False):
     """Persistence and the SQL surface on the headline index, after its
     lifecycle: a full save into ``<tmp>/db.lmd_idx/headline``; a Database
     on ``<tmp>/db`` whose ``create_index`` reopens that checkpoint (no
@@ -1159,7 +1179,10 @@ def store_db_headline(torch, dev, kernels, kernel, coord, data, queries,
     and an incremental ``checkpoint``; the CLI's ``bench`` in a
     subprocess on the incremental checkpoint; every ``tests/sql`` file
     replayed on the card. Returns its metrics and the launches of each
-    kernel per step (the CLI's own process is not counted)."""
+    kernel per step (the CLI's own process is not counted). ``keep_dir``:
+    the directory (``tmp_dir``: the incremental checkpoint and the CLI's
+    ``cli_ids.npy``) outlives the phase, for the ``parallel`` phase, which
+    removes it."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1361,12 +1384,537 @@ def store_db_headline(torch, dev, kernels, kernel, coord, data, queries,
             f"{out['sql_files_s']:.1f} s, {sum(files.values())} directives "
             f"({files}); launches {sql_launches}")
         del db, t, scan, idx, reopened
-    finally:
+    except BaseException:
+        shutil.rmtree(tmp)
+        raise
+    if not keep_dir:
         shutil.rmtree(tmp)
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"store: the phase took {out['phase_s']:.1f} s")
     return out
+
+
+# The parallel phase's sizes: the distributed build and delete, and the
+# multi-process disjoint index (two shards a process).
+DIST_BUILD_ROWS = 65_536
+MULTIHOST_ROWS = 262_144
+MULTIHOST_TIMEOUT_S = 900
+# The global graph across the processes: rows and queries of its checks.
+MULTIHOST_GLOBAL_ROWS = 16_384
+MULTIHOST_GLOBAL_QUERIES = 1024
+
+
+def _block_bytes(arrays, s=0):
+    """Bytes of row block ``s`` of every table of row-sharded arrays."""
+    return sum(t.blocks[s].numel() * t.blocks[s].element_size() for t in arrays)
+
+
+def _same_tables(torch, one, g):
+    """Fields whose rows differ between a Coordinator's tables and the row
+    blocks of a distributed index (compared block by block on the card;
+    across processes, the blocks this process holds)."""
+    bad = []
+    for name in one.arrays._fields:
+        full, sharded = getattr(one.arrays, name), getattr(g.coordinator.arrays, name)
+        rows = sharded.rows
+        for s, blk in sharded._local():
+            a = full[s * rows : (s + 1) * rows]
+            if not torch.equal(a, blk[: a.shape[0]]):
+                diff = (a != blk[: a.shape[0]]).reshape(a.shape[0], -1).any(-1)
+                bad.append((name, s * rows + int(torch.nonzero(diff)[0])))
+                break
+    return bad
+
+
+def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
+                      truth, rng, k, batch, store_dir):
+    """The sharded engines (``parallel/``) on the headline, after
+    ``store_db`` (whose directory, ``store_dir``, it removes):
+
+    - global mode on the headline index: ``GlobalShardedIndex(coord,
+      [card] * 4)`` distributed into four row blocks; its search at the
+      headline's batches equals the Coordinator's (ids, distances, hops);
+      ``load_global_sharded`` of ``store_db``'s incremental checkpoint
+      answers with the ids of the CLI's ``bench`` on it (batches of 256);
+    - disjoint shards at the headline's size: ``ShardedIndex`` over four
+      shards on the card, built from the corpus (4 x n/4 rows); its answer
+      equals the merge of its four Coordinators' own searches, recall@10
+      >= 0.95, exact distances; ``save`` -> ``load_sharded`` -> the same
+      answer;
+    - ``distributed_build`` of the corpus' first DIST_BUILD_ROWS rows into
+      four row blocks: every table and the entry equal
+      ``Coordinator.bulk_build``'s; then DELETE_ROWS rows deleted and a
+      vacuum on both: equal tables again;
+    - multi-process: ``torch.cuda.device_count()`` processes (this script
+      with ``--multihost-worker``), NCCL, two shards each, over the first
+      MULTIHOST_ROWS rows: ids and distances equal a one-process
+      ``ShardedIndex`` over the same shards; and the global graph across
+      those processes (``multihost_global``).
+
+    Returns its metrics and the INT4 launches of each step in this
+    process."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
+    from duckdb_lm_diskann_tpu_torch.parallel.global_graph import (
+        GlobalShardedIndex,
+        load_global_sharded,
+    )
+    from duckdb_lm_diskann_tpu_torch.parallel.mesh import make_mesh
+    from duckdb_lm_diskann_tpu_torch.parallel.sharded import (
+        ShardedIndex,
+        load_sharded,
+    )
+
+    out, launches = {}, {}
+    n = len(data)
+    t_phase = time.perf_counter()
+    tmp = Path(store_dir)
+    mesh4 = make_mesh([dev] * 4)
+    try:
+        # -- global mode on the headline index ------------------------- #
+        ids0, d0, out["headline_search"] = timed_search(
+            torch, kernels, kernel, coord, queries, k,
+            "parallel: headline Coordinator", batch_size=batch)
+        launches["headline_search"] = out["headline_search"]["launches"]
+        g = GlobalShardedIndex(coord, mesh=mesh4)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        stacked = g.distribute()
+        torch.cuda.synchronize(dev)
+        out["distribute_s"] = time.perf_counter() - t0
+        out["row_block_bytes"] = _block_bytes(stacked)
+        out["single_table_bytes"] = coord.get_in_memory_size()
+        ids1, d1, out["global_search"] = timed_search(
+            torch, kernels, kernel, g, queries, k,
+            "parallel: global mode, 4 row blocks", batch_size=batch)
+        launches["global_search"] = out["global_search"]["launches"]
+        if not (np.array_equal(ids1, ids0) and np.array_equal(d1, d0)
+                and out["global_search"]["hops"] == out["headline_search"]["hops"]):
+            bad = int((ids1 != ids0).any(-1).sum())
+            raise AssertionError(f"parallel: global search differs on {bad} "
+                                 "queries, or in hops")
+        if launches["global_search"] % 4:
+            raise AssertionError("parallel: the kernel did not launch per block")
+        log(f"parallel: global mode == the Coordinator (ids, distances, "
+            f"{out['global_search']['hops']} hops); a row block holds "
+            f"{out['row_block_bytes'] / 1e9:.3f} GB of the "
+            f"{out['single_table_bytes'] / 1e9:.3f} GB table "
+            f"(distributed in {out['distribute_s']:.4f} s)")
+        del g, stacked
+        _free(torch)
+
+        cli_ids = np.load(tmp / "cli_ids.npy")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        gl = load_global_sharded(tmp / "db.lmd_idx" / "headline", mesh=mesh4)
+        torch.cuda.synchronize(dev)
+        out["load_global_s"] = time.perf_counter() - t0
+        ids2, _, out["global_loaded_search"] = timed_search(
+            torch, kernels, kernel, gl, queries, k,
+            "parallel: load_global_sharded, batches of 256", batch_size=256)
+        launches["global_loaded_search"] = out["global_loaded_search"]["launches"]
+        if not np.array_equal(ids2, cli_ids):
+            raise AssertionError("parallel: the loaded global index != CLI ids")
+        out["load_global_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        log(f"parallel: load_global_sharded of store_db's checkpoint in "
+            f"{out['load_global_s']:.2f} s; ids == the CLI bench's")
+        del gl
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp)
+
+    # -- disjoint shards at the headline's size ------------------------ #
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    idx = ShardedIndex(cfg, mesh=mesh4)
+    idx.build(range(n), data, max_batch=2048)
+    torch.cuda.synchronize(dev)
+    out["disjoint_build_s"] = time.perf_counter() - t0
+    out["disjoint_inserts_per_s"] = n / out["disjoint_build_s"]
+    launches["disjoint_build"] = check_launches(kernels, kernel, "disjoint build")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    ids, dists = idx.search(queries, k)
+    secs = time.perf_counter() - t0
+    launches["disjoint_search"] = check_launches(kernels, kernel, "disjoint search")
+    out["disjoint_search_s"] = secs
+    out["disjoint_qps"] = len(queries) / secs
+    out["disjoint_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    per = [c.search(queries, k) for c in idx.coordinators]
+    u_ids = np.concatenate([i for i, _ in per], 1)
+    u_d = np.concatenate([d for _, d in per], 1)
+    order = np.stack([np.lexsort((u_ids[b], u_d[b]))[:k]
+                      for b in range(len(queries))])
+    if not (np.array_equal(ids, np.take_along_axis(u_ids, order, 1))
+            and np.array_equal(dists, np.take_along_axis(u_d, order, 1))):
+        raise AssertionError("parallel: disjoint answer != the shards' merge")
+    out["disjoint_recall_at_10"] = recall_of(ids, truth, k)
+    out["disjoint_max_dist_err"] = check_exact(
+        "parallel disjoint", data, queries, ids, dists, "l2")
+    if out["disjoint_recall_at_10"] < 0.95:
+        raise AssertionError(f"parallel: disjoint recall {out}")
+    log(f"parallel: disjoint 4 x {n // 4} built in "
+        f"{out['disjoint_build_s']:.1f} s ({out['disjoint_inserts_per_s']:.0f}"
+        f" inserts/s, {launches['disjoint_build']} launches); search "
+        f"{out['disjoint_qps']:.0f} QPS (one batch of {len(queries)} a "
+        f"shard), recall@10 {out['disjoint_recall_at_10']:.5f}, == the merge "
+        f"of the shards' searches; peak {out['disjoint_peak_bytes'] / 1e9:.3f}"
+        f" GB; {launches['disjoint_search']} launches")
+    sdir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        t0 = time.perf_counter()
+        idx.save(sdir)
+        out["disjoint_save_s"] = time.perf_counter() - t0
+        del idx
+        _free(torch)
+        t0 = time.perf_counter()
+        back = load_sharded(sdir, mesh=mesh4)
+        torch.cuda.synchronize(dev)
+        out["disjoint_load_s"] = time.perf_counter() - t0
+        reset_counts(kernels)
+        ids_b, d_b = back.search(queries, k)
+        launches["disjoint_reloaded"] = check_launches(
+            kernels, kernel, "disjoint reloaded")
+        if not (np.array_equal(ids_b, ids) and np.array_equal(d_b, dists)):
+            raise AssertionError("parallel: load_sharded answers differ")
+        del back
+        _free(torch)
+    finally:
+        shutil.rmtree(sdir)
+    log(f"parallel: disjoint save {out['disjoint_save_s']:.1f} s, "
+        f"load_sharded {out['disjoint_load_s']:.1f} s, the same answers")
+
+    # -- distributed build, delete, vacuum ----------------------------- #
+    m = min(DIST_BUILD_ROWS, n)
+    sub = data[:m]
+    one = Coordinator(cfg, initial_capacity=m)
+    one.bulk_build(range(m), sub, max_batch=2048)
+    reset_counts(kernels)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    g = GlobalShardedIndex(Coordinator(cfg), mesh=mesh4)
+    g.distributed_build(range(m), sub, max_batch=2048)
+    torch.cuda.synchronize(dev)
+    out["distributed_build_s"] = time.perf_counter() - t0
+    launches["distributed_build"] = check_launches(
+        kernels, kernel, "distributed build")
+    bad = _same_tables(torch, one, g)
+    if bad or g.coordinator.entry_slot != one.entry_slot:
+        raise AssertionError(
+            f"parallel: distributed build != bulk_build: {bad}, entry "
+            f"{g.coordinator.entry_slot} vs {one.entry_slot}")
+    victims = rng.choice(m, DELETE_ROWS, replace=False).tolist()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    g.delete(victims)
+    g.vacuum()
+    torch.cuda.synchronize(dev)
+    out["distributed_delete_vacuum_s"] = time.perf_counter() - t0
+    launches["distributed_dml"] = kernel.LAUNCHES
+    one.delete(victims)
+    one.vacuum()
+    bad = _same_tables(torch, one, g)
+    if bad or g.coordinator.entry_slot != one.entry_slot:
+        raise AssertionError(f"parallel: tables after delete + vacuum: {bad}")
+    log(f"parallel: distributed_build of {m} rows in "
+        f"{out['distributed_build_s']:.1f} s == bulk_build (every table, the "
+        f"entry); delete {DELETE_ROWS} + vacuum "
+        f"{out['distributed_delete_vacuum_s']:.2f} s == the Coordinator's")
+    del one, g
+    _free(torch)
+
+    # -- multi-process disjoint shards (NCCL) -------------------------- #
+    out["multihost"] = run_multihost(torch, kernels, kernel, cfg, data, queries, k)
+    launches["multihost_reference"] = out["multihost"]["reference_launches"]
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def run_multihost(torch, kernels, kernel, cfg, data, queries, k):
+    """``torch.cuda.device_count()`` processes (this script with
+    ``--multihost-worker``), NCCL, two disjoint shards each on its own card,
+    over the first MULTIHOST_ROWS rows of ``data``: the merged answer
+    (ids and distances) must equal a one-process ``ShardedIndex`` over the
+    same shards on the same cards. A worker that fails or outlives
+    MULTIHOST_TIMEOUT_S fails the run. Returns the workers' numbers and the
+    reference's INT4 launches in this process."""
+    import shutil
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from duckdb_lm_diskann_tpu_torch.parallel.mesh import make_mesh
+    from duckdb_lm_diskann_tpu_torch.parallel.sharded import ShardedIndex
+
+    mh = min(MULTIHOST_ROWS, len(data))
+    world = torch.cuda.device_count()
+    wdir = Path(tempfile.mkdtemp(prefix="chip_smoke_multihost_"))
+    try:
+        np.save(wdir / "rows.npy", data[:mh])
+        np.save(wdir / "queries.npy", queries)
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        init = f"tcp://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        logs = [open(wdir / f"worker{r}.log", "w") for r in range(world)]
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--multihost-worker", str(r), str(world), init, str(wdir)],
+                cwd=Path(__file__).resolve().parent,
+                stdout=logs[r], stderr=subprocess.STDOUT, text=True,
+            )
+            for r in range(world)
+        ]
+        # A worker that fails leaves the others waiting in a collective:
+        # the first failure (or the time limit) ends them all.
+        try:
+            while any(p_.poll() is None for p_ in procs):
+                if (any(p_.returncode not in (None, 0) for p_ in procs)
+                        or time.perf_counter() - t0 > MULTIHOST_TIMEOUT_S):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+            for f in logs:
+                f.close()
+        wall_s = time.perf_counter() - t0
+        bad = [r for r, p_ in enumerate(procs) if p_.returncode != 0]
+        if bad:  # the report shows a worker that failed on its own first
+            r = min(bad, key=lambda r: procs[r].returncode < 0)
+            text = (wdir / f"worker{r}.log").read_text()
+            raise AssertionError(
+                f"parallel: multihost worker {r} exited {procs[r].returncode} "
+                f"after {wall_s:.1f} s (failed: {bad})\n{text[-4000:]}")
+        res = json.loads((wdir / "rank0.json").read_text())
+        mids = np.load(wdir / "ids.npy")
+        md = np.load(wdir / "dists.npy")
+    finally:
+        shutil.rmtree(wdir)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    single = ShardedIndex(cfg, mesh=make_mesh(
+        [torch.device("cuda", r) for r in range(world) for _ in range(2)]))
+    single.build(range(mh), data[:mh], max_batch=2048)
+    ref_build_s = time.perf_counter() - t0
+    sids, sd = single.search(queries, k)
+    ref_launches = check_launches(kernels, kernel, "one-process reference")
+    if not (np.array_equal(mids, sids) and np.array_equal(md, sd)):
+        bad = int((mids != sids).any(-1).sum())
+        raise AssertionError(
+            f"parallel: multi-process answer != one process on {bad} queries")
+    log(f"parallel: {world} process(es) x 2 shards over {mh} rows "
+        f"({res['backend']}): build {res['build_s']:.1f} s "
+        f"({res['inserts_per_s']:.0f} inserts/s), search {res['qps']:.0f} "
+        f"QPS, {res['launches']} launches in process 0; ids and distances "
+        f"== one process (its build {ref_build_s:.1f} s); {wall_s:.1f} s "
+        "with the processes' start")
+    gr = res["global"]
+    log(f"parallel: global graph over {world} process(es) x 2 row blocks "
+        f"({res['backend']}), {gr['rows']} rows: search {gr['qps']:.0f} QPS "
+        f"== each process's Coordinator ({gr['hops']} hops, {gr['launches']} "
+        f"launches in process 0); distributed_build "
+        f"{gr['distributed_build_s']:.1f} s == bulk_build, delete 100 "
+        f"{gr['delete_100_s']:.2f} s == the Coordinator's; shard-parallel "
+        f"save {gr['save_s']:.2f} s ({gr['blocks_written']} blocks by "
+        f"process 0), load_global_sharded {gr['load_s']:.2f} s, same answers")
+    del single
+    _free(torch)
+    return {**res, "world_size": world, "rows": mh, "wall_s": wall_s,
+            "reference_build_s": ref_build_s,
+            "reference_launches": ref_launches}
+
+
+def multihost_only(n_queries: int) -> int:
+    """``--multihost-only``: the multi-process part of the parallel phase
+    alone, on the headline corpus' first MULTIHOST_ROWS rows and its
+    queries, over every visible card; prints every card's name and power
+    limit and the numbers."""
+    import torch
+
+    from duckdb_lm_diskann_tpu_torch.common.types import (
+        EdgeType,
+        MetricType,
+        VectorType,
+    )
+    from duckdb_lm_diskann_tpu_torch.core.config import LmDiskannConfig
+    from duckdb_lm_diskann_tpu_torch.kernels import _build
+    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
+    from duckdb_lm_diskann_tpu_torch.utils.corpora import make_corpus
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    _build.build_libraries([k4.LIBRARY])
+    p = PATHS["int4_headline"]
+    gen, rng = make_corpus(MULTIHOST_ROWS, p["dims"], seed=p["seed"])
+    data = gen(MULTIHOST_ROWS)
+    queries = data[rng.integers(0, MULTIHOST_ROWS, n_queries)] + 0.01 * (
+        rng.standard_normal((n_queries, p["dims"])).astype(np.float32))
+    cfg = LmDiskannConfig(
+        metric_type=MetricType.parse(p["metric"]), r=64, l_insert=128,
+        alpha=1.2, l_search=p["l_search"], dimensions=p["dims"],
+        node_vector_type=VectorType.FLOAT32,
+        edge_type=EdgeType.parse(p["edge_type"]),
+    )
+    cfg.validate()
+    res = run_multihost(torch, {"int4": k4}, k4, cfg, data, queries, 10)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(cards)
+    print(json.dumps({"multihost": res}))
+    return 0
+
+
+def multihost_worker(rank: int, world: int, init: str, wdir: str) -> int:
+    """One process of the parallel phase's multi-process run: NCCL on card
+    ``rank``, two disjoint shards of the first MULTIHOST_ROWS rows there;
+    process 0 writes the merged answer and its numbers into ``wdir``."""
+    from pathlib import Path
+
+    import torch
+
+    from duckdb_lm_diskann_tpu_torch.common.types import (
+        EdgeType,
+        MetricType,
+        VectorType,
+    )
+    from duckdb_lm_diskann_tpu_torch.core.config import LmDiskannConfig
+    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier
+    from duckdb_lm_diskann_tpu_torch.parallel import multihost
+
+    wdir = Path(wdir)
+    dev = torch.device("cuda", rank)
+    backend = multihost.initialize_distributed(init, world, rank, device=dev)
+    if backend != "nccl":
+        raise AssertionError(f"backend {backend}")
+    p = PATHS["int4_headline"]
+    cfg = LmDiskannConfig(
+        metric_type=MetricType.parse(p["metric"]), r=64, l_insert=128,
+        alpha=1.2, l_search=p["l_search"], dimensions=p["dims"],
+        node_vector_type=VectorType.FLOAT32,
+        edge_type=EdgeType.parse(p["edge_type"]),
+    )
+    cfg.validate()
+    rows = np.load(wdir / "rows.npy")
+    queries = np.load(wdir / "queries.npy")
+    idx = multihost.MultiHostShardedIndex(
+        cfg, mesh=multihost.make_global_mesh([dev, dev]))
+    int4_frontier.LAUNCHES = 0
+    t0 = time.perf_counter()
+    idx.build(range(len(rows)), rows, max_batch=2048)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    idx.search(queries[:1024], 10)  # warm-up
+    t0 = time.perf_counter()
+    ids, dists = idx.search(queries, 10)
+    secs = time.perf_counter() - t0
+    res = {
+        "build_s": build_s, "inserts_per_s": len(rows) / build_s,
+        "search_s": secs, "qps": len(queries) / secs,
+        "launches": int4_frontier.LAUNCHES, "backend": backend,
+    }
+    del idx
+    res["global"] = multihost_global(torch, dev, cfg, rows, queries, wdir)
+    if rank == 0:
+        np.save(wdir / "ids.npy", ids)
+        np.save(wdir / "dists.npy", dists)
+        (wdir / "rank0.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def multihost_global(torch, dev, cfg, rows, queries, wdir):
+    """The global graph across the processes of ``--multihost-worker``: row
+    blocks two a process on its card, a row reassembled by owner
+    contribution plus an NCCL ``all_reduce``, over the first
+    MULTIHOST_GLOBAL_ROWS rows. On every process: its search equals the
+    process's own ``Coordinator.search`` (ids, distances, hops);
+    ``distributed_build`` equals ``bulk_build`` in the blocks it holds, and
+    again after the same delete; the shard-parallel save reopens through
+    ``load_global_sharded`` with the same answers. Returns its numbers."""
+    from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
+    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier
+    from duckdb_lm_diskann_tpu_torch.parallel import multihost
+    from duckdb_lm_diskann_tpu_torch.parallel.global_graph import (
+        GlobalShardedIndex,
+        load_global_sharded,
+    )
+
+    gmesh = multihost.make_global_mesh([dev, dev])
+    n = min(MULTIHOST_GLOBAL_ROWS, len(rows))
+    q = queries[:MULTIHOST_GLOBAL_QUERIES]
+    one = Coordinator(cfg, device=dev)
+    one.bulk_build(range(n), rows[:n], max_batch=2048)
+    want = one.search(q, 10)
+    hops = one.last_search_stats.hops
+    g = GlobalShardedIndex(one, mesh=gmesh)
+    g.distribute()
+    int4_frontier.LAUNCHES = 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = g.search(q, 10)
+    search_s = time.perf_counter() - t0
+    launches = int4_frontier.LAUNCHES
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and g.last_search_stats.hops == hops):
+        raise AssertionError("multihost global: search != the Coordinator's")
+    if launches < 2 * hops or launches % 2:
+        raise AssertionError(f"multihost global: {launches} launches, {hops} hops")
+    del g
+
+    gd = GlobalShardedIndex(Coordinator(cfg, device=dev), mesh=gmesh)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    gd.distributed_build(range(n), rows[:n], max_batch=2048)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    bad = _same_tables(torch, one, gd)
+    if bad or gd.coordinator.entry_slot != one.entry_slot:
+        raise AssertionError(f"multihost global: build != bulk_build: {bad}")
+    victims = np.random.default_rng(0x6D).choice(n, 100, replace=False).tolist()
+    t0 = time.perf_counter()
+    gd.delete(victims)
+    torch.cuda.synchronize(dev)
+    delete_s = time.perf_counter() - t0
+    one.delete(victims)
+    bad = _same_tables(torch, one, gd)
+    if bad or gd.coordinator.entry_slot != one.entry_slot:
+        raise AssertionError(f"multihost global: tables after delete: {bad}")
+    before = gd.search(q, 10)
+    t0 = time.perf_counter()
+    info = gd.save(wdir / "global_ckpt")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_global_sharded(wdir / "global_ckpt", mesh=gmesh)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    after = back.search(q, 10)
+    if not (np.array_equal(before[0], after[0])
+            and np.array_equal(before[1], after[1])):
+        raise AssertionError("multihost global: the reopened checkpoint differs")
+    return {
+        "rows": n, "queries": len(q), "search_s": search_s,
+        "qps": len(q) / search_s, "hops": hops, "launches": launches,
+        "distributed_build_s": build_s, "delete_100_s": delete_s,
+        "save_s": save_s, "blocks_written": info["blocks_written"],
+        "load_s": load_s,
+    }
 
 
 def refine_hard(torch, dev, kernels, kernel, coord, queries, k, batch):
@@ -1503,7 +2051,12 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
                    "edge_type": p["edge_type"]}
         store = store_db_headline(
             torch, dev, kernels, kernel, coord, data, queries, truth, rng, k,
-            batch, options)
+            batch, options, keep_dir=bool(p.get("parallel")))
+    par = None
+    if p.get("parallel"):
+        par = parallel_headline(
+            torch, dev, kernels, kernel, coord, cfg, data, queries, truth, rng,
+            k, batch, store["tmp_dir"])
     del coord
     _free(torch)
     del data, queries
@@ -1537,6 +2090,9 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
             sum(v for key, v in store["launches"].items() if key != "sql_files")
             if store else 0),
         "store_db": store,
+        "launches_parallel": (
+            sum(par["launches"].values()) if par else 0),
+        "parallel": par,
     }
 
 
@@ -1659,7 +2215,10 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=4096)
     ap.add_argument("--hard-n", type=int, default=100_000)
     ap.add_argument("--hard-queries", type=int, default=2048)
-    ap.add_argument("--gist-n", type=int, default=1_000_000)
+    # 500,000: room for the parallel phase (~265 s), keeping the whole run
+    # under ~950 s on the slower hosts (GIST at 1M built in 222-283 s on an
+    # NVIDIA H100 80GB HBM3 at 700 W).
+    ap.add_argument("--gist-n", type=int, default=500_000)
     ap.add_argument("--gist-queries", type=int, default=1024)
     # 262,144: the smoke's whole run stays near half its limit.
     ap.add_argument("--int8-n", type=int, default=262_144)
@@ -1670,7 +2229,17 @@ def main() -> int:
     ap.add_argument("--codec-queries", type=int, default=4096)
     ap.add_argument("--int8-nodes-n", type=int, default=65_536)
     ap.add_argument("--int8-nodes-queries", type=int, default=4096)
+    ap.add_argument("--multihost-only", action="store_true",
+                    help="run only the parallel phase's multi-process part "
+                         "(on every visible card) and print its numbers")
+    ap.add_argument("--multihost-worker", nargs=4, metavar=("RANK", "WORLD", "INIT", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.multihost_worker:
+        r, w, init, wdir = args.multihost_worker
+        return multihost_worker(int(r), int(w), init, wdir)
+    if args.multihost_only:
+        return multihost_only(args.queries)
 
     import torch
 
@@ -1736,7 +2305,7 @@ def main() -> int:
         records[path["edge_type"]]["launches"] = (
             path["launches_build"] + path["launches_search"]
             + path["launches_serving"] + path["launches_lifecycle"]
-            + path["launches_store_db"]
+            + path["launches_store_db"] + path["launches_parallel"]
         )
     store = metrics["int4_headline"]["store_db"]
     for codec, count in store["launches"]["sql_files"].items():

@@ -598,8 +598,14 @@ def inlink_histogram(
     neighbors: torch.Tensor, valid: torch.Tensor, cap: int
 ) -> torch.Tensor:
     """In-link counts i32[cap + 1]: hist[s] = edges into slot s from valid
-    source rows (the last bin takes the empty slots). The JAX package's
-    row-sharded branch waits for the port's parallel/ modules."""
+    source rows (the last bin takes the empty slots). Over row-sharded
+    tables (``parallel/global_graph.py``) each block histograms its own
+    rows (their edge targets are global slots already) and the histograms
+    are summed: integer counts, so the sum is the single table's."""
+    per_block = getattr(neighbors, "per_block", None)
+    if per_block is not None:
+        hists = per_block(lambda n, v: inlink_histogram(n, v, cap), valid)
+        return torch.stack(hists).sum(0, dtype=torch.int32)
     flat = neighbors.reshape(-1)
     src_ok = valid[:, None].expand(neighbors.shape).reshape(-1)
     cnt = (src_ok & (flat >= 0)).to(torch.int32)

@@ -85,6 +85,25 @@ class StreamSearchResult(NamedTuple):
     hops: torch.Tensor  # i32[] loop iterations
 
 
+def _frontier_scores(kernel, cur, query_args, tables, **kw):
+    """``kernel(cur, *query_args, *tables)`` over whole tables. Over
+    row-sharded tables (``parallel/global_graph.py``) the kernel runs on
+    every row block's own tables for the whole batch, and each row keeps
+    the output of the block that owns its node: every launch has the
+    single-device batch shape."""
+    map_rows = getattr(tables[0], "map_rows", None)
+    if map_rows is None:
+        return kernel(cur, *query_args, *tables, **kw)
+
+    def on_block(local_cur, *blocks):
+        dev = blocks[0].device
+        return kernel(
+            local_cur, *(q.to(dev) for q in query_args), *blocks, **kw
+        )
+
+    return map_rows(on_block, cur, *tables[1:])
+
+
 def _score_edges(
     arrays: GraphArrays,
     params: GraphParams,
@@ -99,18 +118,19 @@ def _score_edges(
     kernels; the other codecs are plain gathers, as in the JAX package."""
     et = params.edge_type
     if et is EdgeType.INT4:
-        return int4_frontier_scores(
-            cur, queries, arrays.edge_i4, arrays.edge_scale,
-            metric=params.metric,
+        return _frontier_scores(
+            int4_frontier_scores, cur, (queries,),
+            (arrays.edge_i4, arrays.edge_scale), metric=params.metric,
         )
     if et is EdgeType.INT8:
-        return int8_frontier_scores(
-            cur, queries, arrays.edge_i8, arrays.edge_scale,
-            metric=params.metric,
+        return _frontier_scores(
+            int8_frontier_scores, cur, (queries,),
+            (arrays.edge_i8, arrays.edge_scale), metric=params.metric,
         )
     if et is EdgeType.TERNARY:
-        sim = ternary_frontier_scores(
-            cur, *q_planes, arrays.edge_pos, arrays.edge_neg
+        sim = _frontier_scores(
+            ternary_frontier_scores, cur, q_planes,
+            (arrays.edge_pos, arrays.edge_neg),
         )
         return similarity_to_distance(sim.float(), params.metric)
     if et is EdgeType.FLOAT32 or et is EdgeType.FLOAT16:

@@ -119,6 +119,32 @@ def _config_from_dict(d: dict) -> LmDiskannConfig:
     )
 
 
+def encode_rows(coord: Coordinator, rows: dict) -> np.ndarray:
+    """Node blocks uint8[N, block_size] of N consecutive or scattered slots
+    whose host rows ``rows`` holds (``vectors``, ``neighbors`` as slots,
+    ``valid`` and the codec's edge fields): neighbor slots serialize as
+    row ids through the Coordinator's slot map, and dead slots as zeroed
+    blocks."""
+    neighbors, valid = rows["neighbors"], rows["valid"]
+    nbr_rowids = np.where(
+        neighbors >= 0,
+        coord._slot_rowids[np.maximum(neighbors, 0)],
+        np.int64(INVALID_ROW_ID),
+    )
+    # valid-masked: blocks of dead slots serialize zeroed.
+    nbr_rowids = np.where(valid[:, None], nbr_rowids, np.int64(INVALID_ROW_ID))
+    kw = {name: rows[name] for name in _EDGE_FIELDS[coord.params.edge_type]}
+    if "edge_i4" in kw:
+        # planar words -> the disk block format's byte-interleaved packing
+        # (ops/quantize.words_per_i4)
+        kw["edge_i4"] = i4_packed_from_planar_np(
+            kw["edge_i4"], coord.config.dimensions
+        )
+    blocks = encode_blocks(coord.config, rows["vectors"], nbr_rowids, **kw)
+    blocks[~valid] = 0
+    return blocks
+
+
 def save_index(
     coord: Coordinator,
     directory: str | os.PathLike,
@@ -164,7 +190,6 @@ def save_index(
         else:
             idx = np.arange(hw, dtype=np.int64)
 
-        slot_rowids = coord._slot_rowids
         fields = _EDGE_FIELDS[coord.params.edge_type]
 
         def encode_chunk(sel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -182,28 +207,10 @@ def save_index(
                 def pull(a):
                     return a[sel_d].cpu().numpy()
 
-            vectors = pull(arrays.vectors)
-            neighbors = pull(arrays.neighbors)  # slots
-            valid = pull(arrays.valid)
-            # slot -> rowid for neighbor serialization; dead -> sentinel.
-            nbr_rowids = np.where(
-                neighbors >= 0,
-                slot_rowids[np.maximum(neighbors, 0)],
-                np.int64(INVALID_ROW_ID),
+            names = ("vectors", "neighbors", "valid") + fields
+            blocks = encode_rows(
+                coord, {name: pull(getattr(arrays, name)) for name in names}
             )
-            # valid-masked: blocks of dead slots serialize zeroed.
-            nbr_rowids = np.where(
-                valid[:, None], nbr_rowids, np.int64(INVALID_ROW_ID)
-            )
-            kw = {name: pull(getattr(arrays, name)) for name in fields}
-            if "edge_i4" in kw:
-                # planar words -> the disk block format's byte-interleaved
-                # packing (ops/quantize.words_per_i4)
-                kw["edge_i4"] = i4_packed_from_planar_np(
-                    kw["edge_i4"], coord.config.dimensions
-                )
-            blocks = encode_blocks(coord.config, vectors, nbr_rowids, **kw)
-            blocks[~valid] = 0
             return blocks, bf.crc32_rows(blocks)
 
         # Pipelined two-phase write (the V2 flush-daemon design,
@@ -429,10 +436,15 @@ def _load_host_state(
         shadow.close()
 
 
-def _restore_coordinator_meta(coord: Coordinator, st: dict, cap: int) -> None:
+def _restore_coordinator_meta(
+    coord: Coordinator, st: dict, cap: int, entry_fallback=None
+) -> None:
     """Fill allocator / rowid maps / recovery flags from host state. The
-    entry point is restored when its row survives; otherwise the caller
-    re-selects it once the graph tables are in place."""
+    entry point is restored when its row survives; otherwise
+    ``entry_fallback``, a callable returning (slot, rowid), re-selects it
+    after the allocator state is in place (the loaders pass the
+    Coordinator's degree scan, over one table or over row blocks, once the
+    tables are placed)."""
     lookup = st["lookup"]
     sr = np.full(cap, INVALID_ROW_ID, np.int64)
     if lookup:
@@ -457,6 +469,8 @@ def _restore_coordinator_meta(coord: Coordinator, st: dict, cap: int) -> None:
     if st["entry_rowid"] in lookup:
         coord.entry_slot = lookup[st["entry_rowid"]]
         coord.entry_rowid = st["entry_rowid"]
+    elif lookup and entry_fallback is not None:
+        coord.entry_slot, coord.entry_rowid = entry_fallback()
 
 
 def load_index(
@@ -467,18 +481,17 @@ def load_index(
     """Load an index directory into a Coordinator on ``device`` (the card
     unless the caller asks for the CPU)."""
     st = _load_host_state(directory, verify_checksums)
-    config, hw, lookup = st["config"], st["hw"], st["lookup"]
-    coord = Coordinator(config, initial_capacity=max(1024, hw), device=device)
-    _restore_coordinator_meta(coord, st, coord.capacity)
+    hw = st["hw"]
+    coord = Coordinator(st["config"], initial_capacity=max(1024, hw), device=device)
     # The Coordinator's fresh tables are zero (neighbors -1) past high
     # water; the loaded rows go in front, one host-to-device copy a table.
     arrays: GraphArrays = coord.arrays
     for name, rows in st["fields"].items():
         if hw:
             getattr(arrays, name)[:hw].copy_(torch.from_numpy(rows))
-    # Entry fallback needs the arrays (degree scan): restore it here.
-    if st["entry_rowid"] not in lookup and lookup:
-        coord.entry_slot, coord.entry_rowid = coord._select_fallback_entry()
+    _restore_coordinator_meta(
+        coord, st, coord.capacity, entry_fallback=coord._select_fallback_entry
+    )
     return coord
 
 

@@ -24,7 +24,7 @@ from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
 from tests.oracle import OracleGraph, brute_force_topk, exact_distance
 from tests.test_build import clustered_data
 from tests.torch_configs import configs
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 # (metric, codec) of the index's default codecs: TERNARY for cosine, INT8
 # for L2.

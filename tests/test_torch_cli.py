@@ -9,7 +9,7 @@ import pytest
 
 from duckdb_lm_diskann_tpu_torch.cli import main
 from tests.test_torch_sql import clustered_data
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 CPU = ["--device", "cpu"]
 

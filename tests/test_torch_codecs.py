@@ -21,7 +21,7 @@ from duckdb_lm_diskann_tpu_torch.core.graph import (
 )
 from duckdb_lm_diskann_tpu_torch.core.searcher import beam_search
 from tests.torch_configs import METRIC_NAMES, configs
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 N, DIMS, NQ = 300, 24, 12  # 24 dims: FLOAT1BIT's words carry pad bits
 OPTS = dict(dims=DIMS, r=8, l_insert=16, l_search=32)

@@ -27,7 +27,7 @@ from duckdb_lm_diskann_tpu_torch.kernels import (
 )
 from duckdb_lm_diskann_tpu_torch.ops.distance import pairwise_distance
 from tests.torch_configs import configs
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 # The default codec of each metric and the kernel that scores it.
 DEFAULT_CODECS = {

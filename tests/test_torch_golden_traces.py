@@ -29,7 +29,7 @@ from tests.test_golden_traces import (
     load,
     predelete_searches,
 )
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize(

@@ -39,8 +39,9 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
     # cli, common (1), core (5), db (6), experiments (5), kernels (5),
-    # ops (4), store (4), utils (5) and the eight subpackages themselves.
-    assert len(names) >= 44, names
+    # ops (4), parallel (4), store (4), utils (5) and the nine subpackages
+    # themselves.
+    assert len(names) >= 49, names
     pkg = "duckdb_lm_diskann_tpu_torch."
     for mod in (
         "experiments.profile_hop", "experiments.profile_delete",
@@ -48,5 +49,7 @@ def test_port_imports_no_jax():
         "store.block_codec", "store.file_service", "store.shadow",
         "store.checkpoint", "db.settings", "db.functions", "db.index",
         "db.planner", "db.database", "db.sqltest", "cli",
+        "parallel.mesh", "parallel.sharded", "parallel.global_graph",
+        "parallel.multihost",
     ):
         assert pkg + mod in names

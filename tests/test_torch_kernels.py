@@ -40,7 +40,7 @@ from duckdb_lm_diskann_tpu_torch.ops.quantize import (
 )
 from duckdb_lm_diskann_tpu_torch.ops.ternary import encode_ternary_np
 from tests.torch_configs import METRIC_NAMES, metrics
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 METRICS = [MetricType.L2, MetricType.IP, MetricType.COSINE]
 KERNELS = [int4_frontier, ternary_frontier, int8_frontier, row_gather]

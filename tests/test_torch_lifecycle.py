@@ -27,7 +27,7 @@ from tests.torch_configs import (
     jax_coordinator_copy,
     port_coordinator_from_jax,
 )
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 N, DIMS = 400, 16
 # (metric, codec) of the shared graphs: the headline's codec and the

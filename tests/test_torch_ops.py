@@ -27,7 +27,7 @@ from duckdb_lm_diskann_tpu_torch.ops import ternary as ttern
 from duckdb_lm_diskann_tpu_torch.ops import topk as ttopk
 from duckdb_lm_diskann_tpu_torch.common.types import MetricType
 from tests.torch_configs import metrics
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 METRICS = [MetricType.L2, MetricType.IP, MetricType.COSINE]
 

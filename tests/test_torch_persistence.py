@@ -59,7 +59,7 @@ from tests.torch_configs import (
     jax_graph,
     port_coordinator_from_jax,
 )
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 # (metric, edge codec) of every codec, with a metric each allows.
 CODECS = [

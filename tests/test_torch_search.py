@@ -29,7 +29,7 @@ from duckdb_lm_diskann_tpu_torch.core.searcher import (
 from tests.oracle import OracleGraph
 from tests.test_beam_search import make_params, oracle_to_arrays
 from tests.torch_configs import configs
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 # (metric, codec) of the index's default codecs.
 DEFAULT_CODECS = [("cosine", "ternary"), ("l2", "int8")]

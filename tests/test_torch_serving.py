@@ -2,49 +2,71 @@
 at E = 2 and 4, ``beam_search_many``, ``pick_adaptive_seeds``, filtered
 search and the batched build at ``insert_beam_width = 2``.
 
-Each runs on the same inputs as its JAX counterpart. Graphs are built by
-the JAX Coordinator once per module and carried across with
-``graph_arrays_from_numpy``. Top-k slots, visit order, counts and hops must
-be identical; distances agree to rtol 1e-5 (f32 summation order), with an
-absolute floor of 1e-6 where a cosine distance nears 0 (TERNARY scores are
-integers, so its ids, order and hops are exact).
+Each runs on the same inputs as its JAX counterpart. The JAX side (graphs
+built by the JAX Coordinator from seeded data, carried across with
+``graph_arrays_from_numpy``, and every JAX answer) is recorded by
+``tests/torch_record_serving.py`` in ``tests/golden/torch_serving_jax.npz``,
+so these tests run no JAX program: a pytest worker that has compiled many
+JAX programs can crash inside XLA's compile-cache read or write, and a
+test running there fails with it. Top-k slots, visit order, counts and
+hops must be identical; distances agree to rtol 1e-5 (f32 summation
+order), with an absolute floor of 1e-6 where a cosine distance nears 0
+(TERNARY scores are integers, so its ids, order and hops are exact).
 """
 
-import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from duckdb_lm_diskann_tpu.core import searcher as jax_searcher
-from duckdb_lm_diskann_tpu.core.coordinator import Coordinator as JaxCoordinator
 from duckdb_lm_diskann_tpu_torch.core import searcher
 from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
 from duckdb_lm_diskann_tpu_torch.core.graph import (
     GraphParams,
     graph_arrays_from_numpy,
 )
-from tests.torch_configs import configs, jax_graph, metrics
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests import torch_record_serving as rec
+from tests.torch_configs import configs, metrics
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 # (metric, codec) of the three ported codecs.
-CODECS = ["l2-int4", "cosine-ternary", "l2-int8"]
-N, DIMS = 300, 16
+CODECS = rec.CODECS
+N, DIMS = rec.N, rec.DIMS
 
 
 @pytest.fixture(scope="module")
-def graphs():
-    """codec name -> (JAX coordinator, carried-across arrays, port params,
-    data, queries), each built once."""
+def jax_answers():
+    with np.load(rec.OUT) as f:
+        return {k: f[k] for k in f.files}
+
+
+def recorded(jax_answers, prefix, fields):
+    """A recorded JAX result: its ``fields`` as attributes."""
+    return types.SimpleNamespace(
+        **{f: jax_answers[f"{prefix}/{f}"] for f in fields}
+    )
+
+
+@pytest.fixture(scope="module")
+def graphs(jax_answers):
+    """codec name -> (the JAX graph's entry point and metric, its arrays
+    carried across, port params, data, queries)."""
     cache = {}
 
     def get(name):
         if name not in cache:
-            coord, port_cfg, data, queries = jax_graph(
-                *name.split("-"), n=N, dims=DIMS
+            metric, edge = name.split("-")
+            port_cfg = configs(metric=metric, edge_type=edge, dims=DIMS)[1]
+            g = recorded(jax_answers, f"graph/{name}", rec.GRAPH_FIELDS)
+            coord = types.SimpleNamespace(
+                entry_slot=int(jax_answers[f"graph/{name}/entry_slot"]),
+                metric=metric,
             )
             cache[name] = (
-                coord, graph_arrays_from_numpy(coord.arrays, "cpu"),
-                GraphParams.from_config(port_cfg), data, queries,
+                coord, graph_arrays_from_numpy(g, "cpu"),
+                GraphParams.from_config(port_cfg), rec.graph_data(),
+                jax_answers[f"graph/{name}/queries"],
             )
         return cache[name]
 
@@ -52,7 +74,7 @@ def graphs():
 
 
 def atol_of(coord):
-    return 1e-6 if coord.params.metric.value == "cosine" else 0.0
+    return 1e-6 if coord.metric == "cosine" else 0.0
 
 
 def assert_same_topk(got, want, atol):
@@ -84,24 +106,17 @@ def _same_search(got, want, atol):
 
 @pytest.mark.parametrize("width", [2, 4])
 @pytest.mark.parametrize("codec", CODECS)
-def test_beam_width_matches_jax(graphs, codec, width):
+def test_beam_width_matches_jax(graphs, jax_answers, codec, width):
     """E > 1: the E closest unvisited entries per hop, neighbors offered by
     two visited nodes merged once. E = 2 from the entry point; E = 4 from a
     seed set of four under a visit cap V = 30 that is no multiple of E, so
     the last hop's visits spill past V: dropped from the log, still
     counted."""
     coord, arrays, params, _, queries = graphs(codec)
-    if width == 2:
-        entry, max_visits = np.int32(coord.entry_slot), 0
-    else:
-        entry = np.asarray([coord.entry_slot, 17, 230, 99], np.int32)
-        max_visits = 30
+    entry, max_visits = rec.beam_entry(coord.entry_slot, width)
     kw = dict(l_search=32, k=10, max_visits=max_visits, beam_width=width,
               assume_all_valid=True)
-    want = jax_searcher.beam_search(
-        coord.arrays, jnp.asarray(queries), jnp.asarray(entry),
-        params=coord.params, **kw,
-    )
+    want = recorded(jax_answers, f"beam/{codec}/{width}", rec._SEARCH_FIELDS)
     got = searcher.beam_search(
         arrays, torch.from_numpy(queries), torch.from_numpy(np.array(entry)),
         params=params, **kw,
@@ -115,21 +130,15 @@ def test_beam_width_matches_jax(graphs, codec, width):
 
 
 @pytest.mark.parametrize("codec", CODECS)
-def test_many_and_per_query_seeds_match_jax(graphs, codec):
+def test_many_and_per_query_seeds_match_jax(graphs, jax_answers, codec):
     """beam_search_many equals JAX's and NB port beam_search calls, with
     shared seeds and with per-query seeds [NB, B, S]."""
     coord, arrays, params, _, queries = graphs(codec)
     qs = queries.reshape(3, 4, DIMS)
-    per_query = np.random.default_rng(3).integers(0, N, (3, 4, 2)).astype(
-        np.int32
-    )
-    per_query[0, :, 0] = coord.entry_slot
+    per_query = rec.per_query_seeds(coord.entry_slot)
     kw = dict(l_search=24, k=5, assume_all_valid=True)
-    for entry in (np.int32(coord.entry_slot), per_query):
-        want = jax_searcher.beam_search_many(
-            coord.arrays, jnp.asarray(qs), jnp.asarray(entry),
-            params=coord.params, **kw,
-        )
+    for i, entry in enumerate((np.int32(coord.entry_slot), per_query)):
+        want = recorded(jax_answers, f"many/{codec}/{i}", rec._MANY_FIELDS)
         got = searcher.beam_search_many(
             arrays, torch.from_numpy(qs), torch.from_numpy(np.array(entry)),
             params=params, **kw,
@@ -147,22 +156,13 @@ def test_many_and_per_query_seeds_match_jax(graphs, codec):
 
 
 @pytest.mark.parametrize("metric", ["l2", "cosine"])
-def test_pick_adaptive_seeds_matches_jax(metric):
+def test_pick_adaptive_seeds_matches_jax(jax_answers, metric):
     """Per-query seeds from a sample that holds duplicate vectors: equal
     distances resolve to the lowest sample index, as lax.top_k does."""
-    rng = np.random.default_rng(0xAD)
-    jmetric, pmetric = metrics(metric)
-    vecs = rng.standard_normal((N, DIMS)).astype(np.float32)
-    vecs[3] = vecs[6] = vecs[0]  # exact ties in every query's list
-    sample = np.arange(0, N, 3, dtype=np.int32)
-    q = np.concatenate([
-        rng.standard_normal((10, DIMS)).astype(np.float32), vecs[[0, 9]]
-    ])
+    _, pmetric = metrics(metric)
+    vecs, sample, q = rec.adaptive_inputs(metric)
     for s_count in (1, 3):
-        want = jax_searcher.pick_adaptive_seeds(
-            jnp.asarray(vecs), jnp.asarray(q), jnp.asarray(sample),
-            metric=jmetric, s_count=s_count,
-        )
+        want = jax_answers[f"adaptive/{metric}/{s_count}"]
         got = searcher.pick_adaptive_seeds(
             torch.from_numpy(vecs), torch.from_numpy(q),
             torch.from_numpy(sample), metric=pmetric, s_count=s_count,
@@ -172,20 +172,14 @@ def test_pick_adaptive_seeds_matches_jax(metric):
     assert got[-2].tolist() == [0, 3, 6]  # the tie, lowest index first
 
 
-@pytest.mark.parametrize(
-    "codec,width", [(c, 1) for c in CODECS] + [("l2-int4", 2)]
-)
-def test_filtered_search_matches_jax(graphs, codec, width):
+@pytest.mark.parametrize("codec,width", rec.FILTER_CASES)
+def test_filtered_search_matches_jax(graphs, jax_answers, codec, width):
     """``allowed`` filters the final top-k only: every result is allowed,
     and ids, visit order and hops equal JAX's."""
     coord, arrays, params, _, queries = graphs(codec)
-    allowed = np.zeros(N, bool)
-    allowed[::3] = True
+    allowed = rec.filter_mask()
     kw = dict(l_search=32, k=10, beam_width=width, assume_all_valid=True)
-    want = jax_searcher.beam_search(
-        coord.arrays, jnp.asarray(queries), jnp.int32(coord.entry_slot),
-        params=coord.params, allowed=jnp.asarray(allowed), **kw,
-    )
+    want = recorded(jax_answers, f"filter/{codec}/{width}", rec._SEARCH_FIELDS)
     got = searcher.beam_search(
         arrays, torch.from_numpy(queries), coord.entry_slot, params=params,
         allowed=torch.from_numpy(allowed), **kw,
@@ -195,19 +189,18 @@ def test_filtered_search_matches_jax(graphs, codec, width):
     assert (top >= 0).any() and allowed[top[top >= 0]].all()
 
 
-def test_insert_beam_width_build_matches_jax():
+def test_insert_beam_width_build_matches_jax(jax_answers):
     """A batched build whose insert search visits two nodes a hop gives
     JAX's neighbor table, and its searches JAX's rowids."""
-    rng = np.random.default_rng(0xB2)
-    data = rng.standard_normal((400, DIMS)).astype(np.float32)
-    jax_cfg, port_cfg = configs(dims=DIMS, insert_beam_width=2)
-    jc = JaxCoordinator(jax_cfg, initial_capacity=len(data))
-    jc.bulk_build(range(len(data)), data, max_batch=64)
+    data = rec.insert_width_data()
+    _, port_cfg = configs(dims=DIMS, insert_beam_width=2)
     pc = Coordinator(port_cfg, initial_capacity=len(data), device="cpu")
     assert pc.params.insert_beam_width == 2
     pc.bulk_build(range(len(data)), data, max_batch=64)
     np.testing.assert_array_equal(
-        pc.arrays.neighbors.numpy(), np.asarray(jc.arrays.neighbors)
+        pc.arrays.neighbors.numpy(), jax_answers["insert_width/neighbors"]
     )
     q = data[:6] + 0.05
-    np.testing.assert_array_equal(pc.search(q, 5)[0], jc.search(q, 5)[0])
+    np.testing.assert_array_equal(
+        pc.search(q, 5)[0], jax_answers["insert_width/search_ids"]
+    )

@@ -24,7 +24,7 @@ from tests.torch_configs import (
     configs,
     port_coordinator_from_jax,
 )
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 
 def make_coord(rng, n=120, dims=16):

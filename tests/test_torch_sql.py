@@ -39,7 +39,7 @@ from duckdb_lm_diskann_tpu_torch.db.sqltest import (
     SqlTestError,
     run_sqllogic_file,
 )
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 SQL_DIR = Path(__file__).parent / "sql"
 ALL_SQL_FILES = sorted(SQL_DIR.glob("*.sql.test"))

@@ -1,62 +1,42 @@
 """Streaming lane-refill search of the PyTorch port against the JAX
 package's ``beam_search_stream``.
 
-Same carried-across graphs and tolerances as tests/test_torch_serving.py.
-Ids, distances, per-query visit counts and the hop count equal JAX's
-stream; ids, distances and visit counts also equal the port's own
-lock-step ``beam_search`` on the same queries (lane packing is a pure
-scheduling change).
+Same carried-across graphs and tolerances as tests/test_torch_serving.py,
+and, as there, the JAX answers are recorded (``tests/torch_record_serving.py``),
+so this file runs no JAX program. Ids, distances, per-query visit counts
+and the hop count equal JAX's stream; ids, distances and visit counts also
+equal the port's own lock-step ``beam_search`` on the same queries (lane
+packing is a pure scheduling change).
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from duckdb_lm_diskann_tpu.core import searcher as jax_searcher
 from duckdb_lm_diskann_tpu_torch.core import searcher
-from tests.test_torch_serving import (  # noqa: F401  (graphs: a fixture)
-    N,
+from tests import torch_record_serving as rec
+from tests.test_torch_serving import (  # noqa: F401  (fixtures)
     assert_same_topk,
     atol_of,
     graphs,
+    jax_answers,
+    recorded,
 )
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
-ZOMBIES = [7, 40, 41]
+ZOMBIES = rec.ZOMBIES
 
 
-@pytest.mark.parametrize("codec,case", [
-    ("l2-int4", "lanes<nq"),
-    ("cosine-ternary", "lanes<nq"),
-    ("l2-int8", "lanes<nq"),
-    ("l2-int8", "lanes>nq"),
-    ("cosine-ternary", "seeds+allowed"),
-    ("l2-int4", "zombies"),
-])
-def test_stream_matches_jax(graphs, codec, case):
+@pytest.mark.parametrize("codec,case", rec.STREAM_CASES)
+def test_stream_matches_jax(graphs, jax_answers, codec, case):
     coord, arrays, params, data, queries = graphs(codec)
-    rng = np.random.default_rng(11)
-    q = np.concatenate([queries, data[rng.integers(0, N, 25)]])  # NQ = 37
-    entry = np.int32(coord.entry_slot)
-    allowed = None
-    j_arrays = coord.arrays
-    lanes = {"lanes<nq": 8, "lanes>nq": 64}.get(case, 4)
-    if case == "seeds+allowed":  # per-query seeds [NQ, 3] and a filter
-        entry = rng.integers(0, N, (len(q), 3)).astype(np.int32)
-        allowed = np.zeros(N, bool)
-        allowed[rng.choice(N, 80, replace=False)] = True
+    q, entry, allowed, valid, lanes = rec.stream_inputs(
+        case, queries, data, coord.entry_slot, arrays.valid.numpy()
+    )
     if case == "zombies":  # tombstoned nodes whose in-edges stay
-        valid = np.asarray(coord.arrays.valid).copy()
-        valid[ZOMBIES] = False
-        j_arrays = coord.arrays._replace(valid=jnp.asarray(valid))
         arrays = arrays._replace(valid=torch.from_numpy(valid))
     kw = dict(l_search=24, k=8, assume_all_valid=case != "zombies")
-    want = jax_searcher.beam_search_stream(
-        j_arrays, jnp.asarray(q), jnp.asarray(entry), params=coord.params,
-        lanes=lanes, allowed=None if allowed is None else jnp.asarray(allowed),
-        **kw,
-    )
+    want = recorded(jax_answers, f"stream/{codec}/{case}", rec._MANY_FIELDS)
     p_allowed = None if allowed is None else torch.from_numpy(allowed)
     got = searcher.beam_search_stream(
         arrays, torch.from_numpy(q), torch.from_numpy(np.array(entry)),
