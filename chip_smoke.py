@@ -40,9 +40,18 @@ Phases (each raises on failure, so the script exits non-zero):
    misaligned table views: both the bulk-copy and the vector branch must
    run. The time of an empty kernel by both methods
    (``timing_floor_ms``, ``timing_floor_train_ms``) is printed beside them.
-3. The hop profiler (``experiments/profile_hop.py``) at 2^20 rows: the
-   knockout rows of the INT4 hop, then the row-gather A/B; its rows go to
-   standard output. The row-gather kernel must launch in the A/B.
+3. The hop profilers at 2^20 rows: ``experiments/profile_hop.py``'s
+   knockout rows of a copy of the INT4 hop, then its row-gather A/B; then
+   on one shared set of random tables ``experiments/profile_searcher.py``
+   (knockouts of a mirror of the real hop, with and without the
+   neighbor-validity gather) and ``experiments/profile_real.py`` (the real
+   ``beam_search`` at visit caps 48 and 160: per-hop slope and fixed
+   intercept, wall; its card column, from a torch.profiler trace, is the
+   run's last card work, on fresh tables of the same seed, followed by
+   its wall times once more). Their rows go to standard output,
+   each prefixed with its script's name. The row-gather kernel must launch
+   in the A/B, the INT4 kernel in every other step, and ``profile_real``'s
+   hops must equal both caps.
 4. The main paths through ``Coordinator`` (on the card by default):
    ``bulk_build``, then (after one untimed warm-up batch) ``search`` in
    pipelined batches, then 20 B=1 queries:
@@ -52,16 +61,22 @@ Phases (each raises on failure, so the script exits non-zero):
      graph the serving options: ``stream=True, lanes=1024`` (rowids
      identical to the lock-step batches), ``beam_width=2``, and a filter to
      a seeded 10% of the rows (every result inside it, recall against a
-     brute-force scan of the subset);
+     brute-force scan of the subset); then ``experiments/ab_stream.py``
+     (lock-step batches of 1024 against the stream at 512, 1024 and 2048
+     lanes, ids held equal at 1024 lanes), before the lifecycle;
    - HARD: ``make_hard_corpus(N, 128, seed=0x4A2D)``, L2, INT4, R=64,
      L_insert=128, build batches of 1024; 2048 queries, top-10 at
      L_search=100, streamed over 512 lanes with and without adaptive seeds
      (2 of a 4096-node sample), each identical to the lock-step batches of
-     512 with the same options (``--hard-n``, default 100,000);
+     512 with the same options (``--hard-n``, default 100,000); then
+     ``experiments/ab_hard_recall.py``'s baseline and seven of its twelve
+     configurations (``HARD_GRID``: adaptive seeds, L, beam width 2)
+     against the exact top-k, one timed call each after the first,
+     printed only;
    - GIST: ``make_corpus(N, 960, seed=0x61577)``, cosine, default codec
      (TERNARY), R=64, L_insert=128, build batches of 1024; 1024 queries,
      top-10 at L_search=128, search batches of 256 (``--gist-n``, default
-     500,000: the ``parallel`` phase took the room of the other half);
+     400,000: the ``parallel`` phase and the instruments took the room);
    - INT8: ``make_corpus(N, 128)``, L2, default codec (INT8), R=64,
      L_insert=128, build batches of 2048; top-10 at L_search=100, search
      batches of 1024 (``--int8-n``, default 262,144).
@@ -108,7 +123,12 @@ Phases (each raises on failure, so the script exits non-zero):
    a process (``make_global_mesh``, rows reassembled by NCCL
    ``all_reduce``), whose search, ``distributed_build``, delete and
    shard-parallel save -> ``load_global_sharded`` must equal each
-   process's own Coordinator.
+   process's own Coordinator. The last step of the headline, HARD and
+   GIST is ``experiments/profile_insert.py`` (it inserts new rows, so it
+   follows every check that reads the index): two steady insert batches
+   of the path's build batch size, then the insert path's candidate
+   search alone at beam widths 1 and 2 on a third batch; the path's
+   kernel must launch.
 5. The codecs without a TPU kernel: DEEP's corpus (``make_corpus(N, 96,
    seed=0xDEE9)``), cosine, R=64, L_insert=128, L_search=100, 4096
    queries, built and searched with FLOAT32, FLOAT16, NONE and FLOAT1BIT
@@ -129,9 +149,11 @@ distance must equal the exact f64 one to 1e-4. Each search reports QPS,
 hops, visits per query and the hop roofline's ``sol_qps`` and
 ``sol_fraction``. Each path's tensors are freed before the next.
 
-Standard output: the profiler's rows, a line of end-to-end numbers per
-path, the card's name and power limit, a line with the kernels' numbers,
-and last ``{"ok": true, "device": {...}}``. Progress goes to standard error.
+Standard output: the profilers' and instruments' rows, a line of
+end-to-end numbers per path, a line ``{"instruments": {...}}`` with every
+instrument's numbers, the card's name and power limit, a line with the
+kernels' numbers, and last ``{"ok": true, "device": {...}}``. Progress
+goes to standard error.
 """
 
 from __future__ import annotations
@@ -789,49 +811,106 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
 
 
 def run_profiler(torch, dev, kernels):
-    """Both modes of the hop profiler at 2^20 rows, each with the counters
-    set to 0 just before. Returns its rows and the row gather's launches."""
-    from duckdb_lm_diskann_tpu_torch.experiments import profile_hop
+    """The hop profilers at 2^20 rows, each run with the counters set to 0
+    just before: ``profile_hop`` (knockout, then gather A/B), then
+    ``profile_searcher`` (both valid modes) and ``profile_real`` on one
+    shared set of tables. Returns their rows and the launches of the row
+    gather and of the INT4 kernel."""
+    from duckdb_lm_diskann_tpu_torch.experiments import (
+        profile_hop,
+        profile_real,
+        profile_searcher,
+    )
 
-    def out(line):
-        print(f"profile_hop {line}", flush=True)
+    def printer(tag):
+        return lambda line: print(f"{tag} {line}", flush=True)
+
+    k4 = kernels["int4"]
+    int4 = {}
+
+    def held(label):
+        if k4.LAUNCHES <= 0:
+            raise AssertionError(f"{label} never ran the INT4 kernel")
+        int4[label] = check_launches(kernels, k4, label)
 
     t0 = time.perf_counter()
     reset_counts(kernels)
-    knock = profile_hop.knockout(dev, out=out)
-    if kernels["int4"].LAUNCHES <= 0:
-        raise AssertionError("profile_hop knockout never ran the INT4 kernel")
+    knock = profile_hop.knockout(dev, out=printer("profile_hop"))
+    held("profile_hop knockout")
     _free(torch)
     reset_counts(kernels)
-    gather = profile_hop.gather_ab(dev, out=out)
+    gather = profile_hop.gather_ab(dev, out=printer("profile_hop"))
     kg = kernels["row_gather"]
     launches = {"pipelined_gather": kg.LAUNCHES,
                 "pipelined_gather4": kg.LAUNCHES4}
     if min(launches.values()) <= 0:
         raise AssertionError(f"profile_hop gather: row gather launches {launches}")
     _free(torch)
-    log(f"hop profiler took {time.perf_counter() - t0:.1f} s; row gather "
-        f"launches {launches}")
-    return {"knockout": knock, "gather": gather}, launches
+    t1 = time.perf_counter()
+    tables = profile_real.make_tables(dev)
+    searcher_rows = []
+    for valid in (True, False):
+        reset_counts(kernels)
+        searcher_rows += profile_searcher.knockout(
+            dev, tables, valid=valid, out=printer("profile_searcher"))
+        held(f"profile_searcher valid={int(valid)}")
+    reset_counts(kernels)
+    # Wall times only: the card column comes last in the run
+    # (run_profile_real_card), after every other wall time.
+    real = profile_real.profile(dev, tables, card=False,
+                                out=printer("profile_real"))
+    held("profile_real")
+    real.pop("results")
+    caps, hops = (profile_real.V_LO, profile_real.V_HI), real["batch_hops"]
+    timed = [i for i in range(len(hops[caps[0]]))
+             if all(hops[v][i] == v for v in caps)]
+    if not timed or len(timed) != real["batches_timed"]:
+        raise AssertionError(f"profile_real: hops {hops} != the caps {caps}")
+    del tables
+    _free(torch)
+    log(f"hop profilers took {time.perf_counter() - t0:.1f} s (searcher and "
+        f"real {time.perf_counter() - t1:.1f} s); row gather launches "
+        f"{launches}; INT4 launches {int4}")
+    launches["int4"] = sum(int4.values())
+    return ({"knockout": knock, "gather": gather},
+            {"profile_searcher": searcher_rows, "profile_real": real,
+             "int4_launches": int4}, launches)
+
+
+def run_profile_real_card(torch, dev, kernels):
+    """``profile_real``'s card column (its busy time in a torch.profiler
+    trace) on fresh tables of the same seed, as the run's last card work:
+    a profiler session may slow the launches that follow it in this
+    process. Then its wall times once more, to show whether it did.
+    Returns the card and after-profiler wall rows and the INT4 launches."""
+    from duckdb_lm_diskann_tpu_torch.experiments import profile_real
+
+    def printer(tag):
+        return lambda line: print(f"profile_real {tag}{line}", flush=True)
+
+    t0 = time.perf_counter()
+    tables = profile_real.make_tables(dev)
+    reset_counts(kernels)
+    card = profile_real.card_profile(tables, out=printer(""))
+    if card is None:
+        log("profile_real: the profiler traced no device activity")
+    after = profile_real.profile(dev, tables, card=False, reps=2,
+                                 out=printer("after the profiler: "))["wall"]
+    launches = check_launches(kernels, kernels["int4"], "profile_real card")
+    del tables
+    _free(torch)
+    log(f"profile_real card column took {time.perf_counter() - t0:.1f} s")
+    return {"card": card, "wall_after_profiler": after}, launches
 
 
 def exact_topk(torch, dev, data, queries, k, metric, chunk=1 << 17):
-    """Brute-force top-k on the card: the port's all_pairs_distance in row
-    chunks, then topk."""
-    from duckdb_lm_diskann_tpu_torch.ops.distance import all_pairs_distance
+    """Brute-force top-k rowids on the card (``ab_hard_recall.exact_topk``:
+    the port's all_pairs_distance in row chunks, then topk)."""
+    from duckdb_lm_diskann_tpu_torch.experiments.ab_hard_recall import (
+        exact_topk as brute_force,
+    )
 
-    q = torch.from_numpy(queries).to(dev)
-    best_d = torch.full((len(queries), k), float("inf"), device=dev)
-    best_i = torch.full((len(queries), k), -1, dtype=torch.int64, device=dev)
-    for off in range(0, len(data), chunk):
-        base = torch.from_numpy(data[off : off + chunk]).to(dev)
-        d = all_pairs_distance(q, base, metric)
-        dd, ii = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
-        cat_d = torch.cat([best_d, dd], 1)
-        cat_i = torch.cat([best_i, ii + off], 1)
-        best_d, pos = torch.topk(cat_d, k, dim=1, largest=False)
-        best_i = cat_i.gather(1, pos)
-    return best_i.cpu().numpy()
+    return brute_force(data, queries, k, metric, dev, chunk=chunk)[0]
 
 
 def exact_distances(queries, vecs, metric_name):
@@ -850,17 +929,18 @@ PATHS = {
     "int4_headline": dict(
         dims=128, seed=0xBE7C4, metric="l2", edge_type="int4", l_search=100,
         max_batch=2048, search_batch=1024, codec="int4", lifecycle=True,
-        store_db=True, parallel=True,
+        store_db=True, parallel=True, ab_stream=True, profile_insert=True,
     ),
     "hard": dict(
         dims=128, seed=0x4A2D, metric="l2", edge_type="int4", l_search=100,
         max_batch=1024, search_batch=512, codec="int4", corpus="hard",
         min_recall=None,  # 5% exact duplicates: strict recall is printed
-        refine=True,
+        refine=True, ab_hard_recall=True, profile_insert=True,
     ),
     "gist_ternary": dict(
         dims=960, seed=0x61577, metric="cosine", edge_type=None,
         l_search=128, max_batch=1024, search_batch=256, codec="ternary",
+        profile_insert=True,
     ),
     "int8_l2": dict(
         dims=128, seed=0xBE7C4, metric="l2", edge_type=None, l_search=100,
@@ -1013,6 +1093,80 @@ def serve_hard(torch, dev, kernels, kernel, coord, data, queries, ids,
 
 
 SERVE = {"int4_headline": serve_headline, "hard": serve_hard}
+
+
+def run_ab_stream(torch, kernels, kernel, coord, queries, k, l_search, batch):
+    """``experiments/ab_stream.py`` on the headline graph (before its
+    lifecycle, while ``assume_all_valid`` holds): lock-step batches of
+    ``batch`` against the stream at 512, 1,024 and 2,048 lanes on the
+    queries' whole batches. The id match is printed; ab_stream holds
+    lanes == ``batch`` to 1.0."""
+    from duckdb_lm_diskann_tpu_torch.experiments import ab_stream
+
+    whole = len(queries) // batch * batch
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    out = ab_stream.compare(
+        coord, queries[:whole], k=k, l_search=l_search, batch=batch, reps=1,
+        out=lambda line: print(f"ab_stream {line}", flush=True))
+    out["launches"] = check_launches(kernels, kernel, "ab_stream")
+    out["s"] = time.perf_counter() - t0
+    log(f"ab_stream took {out['s']:.1f} s, {out['launches']} launches")
+    return out
+
+
+# The smoke's subset of ab_hard_recall's twelve configurations (the run's
+# time): each seed count, sample size and L once, and both W2 rows.
+HARD_GRID = ("adaptive s2 m4096 L100", "adaptive s4 m8192 L100",
+             "adaptive s8 m8192 L150", "adaptive s8 m16384 L150",
+             "adaptive s8 m8192 L200", "W2 s8 m8192 L100", "W2 s8 m8192 L150")
+
+
+def run_ab_hard_recall(torch, kernels, kernel, coord, data, queries, truth,
+                       k, reps=1):
+    """``experiments/ab_hard_recall.py``'s baseline and the HARD_GRID
+    configurations on the refined HARD graph, against the path's exact
+    top-k (its k-th distance in f64 for the eps-recall), ``reps`` timed
+    calls each after the first. Printed only: HARD's recall is not held."""
+    from duckdb_lm_diskann_tpu_torch.experiments import ab_hard_recall
+
+    grid = [c for c in ab_hard_recall.CONFIGS if c[0] in HARD_GRID]
+    if len(grid) != len(HARD_GRID):
+        raise AssertionError(f"ab_hard_recall: {HARD_GRID} not all found")
+
+    truth_dists = np.sort(exact_distances(queries, data[truth], "l2"), 1)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rows = ab_hard_recall.sweep(
+        coord, queries, truth, truth_dists, k=k, reps=reps,
+        configs=(ab_hard_recall.BASELINE, *grid),
+        out=lambda line: print(f"ab_hard_recall {line}", flush=True))
+    out = {"reps": reps, "rows": [
+        {key: v for key, v in row.items() if key != "ids"} for row in rows]}
+    out["launches"] = check_launches(kernels, kernel, "ab_hard_recall")
+    out["s"] = time.perf_counter() - t0
+    log(f"ab_hard_recall took {out['s']:.1f} s, {out['launches']} launches")
+    return out
+
+
+def run_profile_insert(torch, kernels, kernel, coord, data, max_batch, label):
+    """``experiments/profile_insert.py`` as a path's last step: 3 x
+    ``max_batch`` new rows (corpus rows plus seeded noise, under fresh row
+    ids from len(data)); two steady batches inserted, then the candidate
+    search at widths 1 and 2 on the third batch."""
+    from duckdb_lm_diskann_tpu_torch.experiments import profile_insert
+
+    n, m = len(data), 3 * max_batch
+    rng = np.random.default_rng(0x1A5E)
+    rows = data[rng.integers(0, n, m)] + 0.01 * rng.standard_normal(
+        (m, data.shape[1])).astype(np.float32)
+    reset_counts(kernels)
+    out = profile_insert.profile(
+        coord, range(n, n + m), rows, max_batch,
+        out=lambda line: print(f"profile_insert {label} {line}", flush=True))
+    out["launches"] = check_launches(kernels, kernel,
+                                     f"{label} profile_insert")
+    return out
 
 # bench.py:635-652: two delete batches of this many rows, cold then steady.
 DELETE_ROWS = 1000
@@ -2039,6 +2193,13 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
     if name in SERVE:
         serving = SERVE[name](torch, dev, kernels, kernel, coord, data,
                               queries, ids, truth, k, p["metric"], batch)
+    instruments = {}
+    if p.get("ab_stream"):
+        instruments["ab_stream"] = run_ab_stream(
+            torch, kernels, kernel, coord, queries, k, p["l_search"], batch)
+    if p.get("ab_hard_recall"):
+        instruments["ab_hard_recall"] = run_ab_hard_recall(
+            torch, kernels, kernel, coord, data, queries, truth, k)
     lifecycle = None
     if p.get("lifecycle"):
         lifecycle = lifecycle_headline(
@@ -2057,6 +2218,9 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
         par = parallel_headline(
             torch, dev, kernels, kernel, coord, cfg, data, queries, truth, rng,
             k, batch, store["tmp_dir"])
+    if p.get("profile_insert"):  # last: it inserts new rows
+        instruments["profile_insert"] = run_profile_insert(
+            torch, kernels, kernel, coord, data, p["max_batch"], name)
     del coord
     _free(torch)
     del data, queries
@@ -2093,6 +2257,9 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
         "launches_parallel": (
             sum(par["launches"].values()) if par else 0),
         "parallel": par,
+        "launches_instruments": sum(
+            m["launches"] for m in instruments.values()),
+        "instruments": instruments,
     }
 
 
@@ -2215,10 +2382,10 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=4096)
     ap.add_argument("--hard-n", type=int, default=100_000)
     ap.add_argument("--hard-queries", type=int, default=2048)
-    # 500,000: room for the parallel phase (~265 s), keeping the whole run
-    # under ~950 s on the slower hosts (GIST at 1M built in 222-283 s on an
-    # NVIDIA H100 80GB HBM3 at 700 W).
-    ap.add_argument("--gist-n", type=int, default=500_000)
+    # 400,000: room for the parallel phase (~265-346 s) and the instruments
+    # (~110 s); at 500,000 the whole run took 1,129 s of its 1,200 on a slow
+    # host (GIST's build 155.6 s there; an NVIDIA H100 80GB HBM3 at 700 W).
+    ap.add_argument("--gist-n", type=int, default=400_000)
     ap.add_argument("--gist-queries", type=int, default=1024)
     # 262,144: the smoke's whole run stays near half its limit.
     ap.add_argument("--int8-n", type=int, default=262_144)
@@ -2281,9 +2448,9 @@ def main() -> int:
         records[key]["max_abs_err"] = max(records[key]["max_abs_err"],
                                           cases["max_abs_err"])
     records["gather"], records["gather4"] = check_row_gather(torch, dev)
-    profile, gather_launches = run_profiler(torch, dev, kernels)
-    records["gather"]["launches"] = gather_launches["pipelined_gather"]
-    records["gather4"]["launches"] = gather_launches["pipelined_gather4"]
+    profile, hop_instruments, phase3 = run_profiler(torch, dev, kernels)
+    records["gather"]["launches"] = phase3["pipelined_gather"]
+    records["gather4"]["launches"] = phase3["pipelined_gather4"]
     t_paths = time.perf_counter()
     metrics = {
         "int4_headline": run_path(torch, dev, kernels, "int4_headline",
@@ -2300,17 +2467,17 @@ def main() -> int:
                                      args.int8_nodes_queries),
     }
     log(f"main paths took {time.perf_counter() - t_paths:.1f} s")
-    for name in ("int4_headline", "gist_ternary", "int8_l2"):
+    real_card, real_card_launches = run_profile_real_card(torch, dev, kernels)
+    hop_instruments["profile_real"].update(real_card)
+    records["int4"]["launches"] = phase3["int4"] + real_card_launches
+    records["ternary"]["launches"] = records["int8"]["launches"] = 0
+    for name in ("int4_headline", "hard", "gist_ternary", "int8_l2"):
         path = metrics[name]
-        records[path["edge_type"]]["launches"] = (
-            path["launches_build"] + path["launches_search"]
-            + path["launches_serving"] + path["launches_lifecycle"]
-            + path["launches_store_db"] + path["launches_parallel"]
-        )
+        records[path["edge_type"]]["launches"] += sum(
+            v for key, v in path.items() if key.startswith("launches_"))
     store = metrics["int4_headline"]["store_db"]
     for codec, count in store["launches"]["sql_files"].items():
         records[codec]["launches"] += count
-    records["int4"]["launches"] += metrics["hard"]["launches_refine"]
     for codec, run in metrics["int8_nodes"]["runs"].items():
         for m in (run["int8_nodes"], run["float32_nodes"]):
             records[codec]["launches"] += m["launches_build"] + m["launches"]
@@ -2334,7 +2501,12 @@ def main() -> int:
             rows.append({**rec, "name": rec["name"] + "_deep", "replaces": also})
     print(json.dumps({"profile_hop": profile, "timing_floor_ms": floor,
                       "timing_floor_train_ms": floor_train}))
+    instruments = dict(hop_instruments)
+    for name in ("int4_headline", "hard", "gist_ternary", "int8_l2"):
+        for step, rec in metrics[name].pop("instruments").items():
+            instruments[f"{name}/{step}"] = rec
     print(json.dumps({"metrics": metrics}))
+    print(json.dumps({"instruments": instruments}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

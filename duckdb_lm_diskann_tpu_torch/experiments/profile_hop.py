@@ -36,7 +36,7 @@ so fixed per-call costs cancel: ``wall``, the loop issued to an idle card
 (what a search pays per hop, host launch path included: the hop loop is
 host-bound). Beside it, ``on the card``: the loop issued in short chunks,
 each behind a sleep kernel, so that the events time the card's work alone
-(``utils/cuda_timing.py``).
+(``utils/cuda_timing.slope_ms``).
 """
 
 from __future__ import annotations
@@ -60,50 +60,6 @@ V = 4 * L
 # u32 words of one self-contained row: vector | neighbors | scales | codes.
 ROW = D + R + R + R * (D // 2) // 4
 INF = float("inf")
-
-
-def _time_loop(step, states, reps=4, chunk=8):
-    """(wall, card) ms per iteration of ``step(state, i) -> state``, best
-    of ``reps``; each run starts from a clone of one of ``states``.
-
-    wall: the slope between ITERS_LO and ITERS_HI iterations issued to an
-    idle card (after a warm-up of each), so fixed per-run costs cancel; the
-    host launch path is included. card: ITERS_LO iterations issued in
-    chunks of ``chunk``, each behind a sleep kernel
-    (``utils.cuda_timing.device_ms``), so the events time the card's work
-    alone; their sum over the iterations."""
-
-    def wall(iters, state):
-        state = tuple(t.clone() for t in state)
-
-        def loop(_):
-            s = state
-            for i in range(iters):
-                s = step(s, i)
-
-        return cuda_timing.wall_ms(loop, 1)[0]
-
-    def card(state, hold_ms):
-        box = [tuple(t.clone() for t in state)]
-
-        def run(c):
-            s = box[0]
-            for i in range(c * chunk, (c + 1) * chunk):
-                s = step(s, i)
-            box[0] = s
-
-        times = cuda_timing.device_ms(run, ITERS_LO // chunk, hold_ms=hold_ms)
-        return sum(times) / ITERS_LO
-
-    wall(ITERS_LO, states[0])
-    hold_ms = 1.5 * chunk * wall(ITERS_HI, states[0]) / ITERS_HI
-    t_lo, t_hi, t_card = [], [], []
-    for i in range(reps):
-        s = states[(i + 1) % len(states)]
-        t_lo.append(wall(ITERS_LO, s))
-        t_hi.append(wall(ITERS_HI, s))
-        t_card.append(card(s, hold_ms))
-    return (min(t_hi) - min(t_lo)) / (ITERS_HI - ITERS_LO), min(t_card)
 
 
 def _seeds(dev, n=8):
@@ -225,7 +181,9 @@ def knockout(dev, out=print) -> list[dict]:
     states = [state(s) for s in _seeds(dev)]
     rows = []
     for name, kw in KNOCKOUTS:
-        wall, card = _time_loop(_hop_step(tables, **kw), states)
+        wall, card = cuda_timing.slope_ms(
+            _hop_step(tables, **kw), states, ITERS_LO, ITERS_HI
+        )
         out(f"{name:12s}: {wall:.3f} ms/hop wall, {card:.3f} ms/hop on the card")
         rows.append({"variant": name, "ms_per_hop": wall,
                      "device_ms_per_hop": card})
@@ -298,7 +256,9 @@ def gather_ab(dev, out=print) -> list[dict]:
             return (((idx.long() + fn(idx) + i) & (CAP - 1)).to(torch.int32),)
 
         row_gather.LAST_PLAN = None
-        wall, card = _time_loop(step, [(s,) for s in seeds])
+        wall, card = cuda_timing.slope_ms(
+            step, [(s,) for s in seeds], ITERS_LO, ITERS_HI
+        )
         plan = row_gather.LAST_PLAN
         out(f"{name:18s}: {wall:.3f} ms/iter wall, {card:.4f} ms/iter on the "
             f"card ({card * 1e6 / B:.1f} ns/row)"

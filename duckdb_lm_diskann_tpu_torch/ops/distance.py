@@ -86,6 +86,15 @@ def batched_all_pairs_distance(
     raise ValueError(f"Unsupported metric type {metric}")
 
 
+def query_to_neighbors_distance(
+    query: torch.Tensor, neighbor_vecs: torch.Tensor, metric: MetricType
+) -> torch.Tensor:
+    """query [B, D] x per-query neighbor vectors [B, R, D] -> [B, R]: each
+    query scored against the R cached vectors of its own gathered node row
+    (the per-edge distance loop of libsql/vectordiskann.c:1370-1396)."""
+    return pairwise_distance(query[:, None, :], neighbor_vecs, metric)
+
+
 def similarity_to_distance(
     sim: torch.Tensor, metric: MetricType
 ) -> torch.Tensor:

@@ -119,6 +119,19 @@ def encode_int4_np(vectors: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return packed, scale.astype(np.float32)
 
 
+def decode_int4_np(packed: np.ndarray, scales: np.ndarray, d: int) -> np.ndarray:
+    """HOST: byte-interleaved u8 codes [..., ceil(D/2)] (dim 2i in the low
+    nibble, 2i+1 in the high one) and scales [...] -> f32 [..., D]; the
+    nibbles sign-extend as (x ^ 8) - 8 and an odd D drops its pad nibble.
+    The packed format, not the planar words: ``i4_packed_from_planar_np``
+    turns those into it."""
+    u = np.asarray(packed).astype(np.int32)
+    lo = ((u & 0xF) ^ 8) - 8
+    hi = (((u >> 4) & 0xF) ^ 8) - 8
+    out = np.stack([lo, hi], axis=-1).reshape(*u.shape[:-1], -1)
+    return out[..., :d].astype(np.float32) * np.asarray(scales)[..., None]
+
+
 def i4_planar_from_packed_np(packed: np.ndarray, d: int) -> np.ndarray:
     """HOST: byte-interleaved u8 [..., ceil(D/2)] -> planar u32 words
     [..., ceil(D/8)] (the JAX package's words; pad nibbles zero).

@@ -34,6 +34,13 @@ def sort_by_distance_id(dist, ids, *extras):
     return lex_sort((dist, ids), extras)
 
 
+def topk_by_distance(dist, ids, k):
+    """The k smallest (dist, id) pairs along the last axis, in that order
+    (a -0.0 and a +0.0 tie and resolve by id)."""
+    sorted_dist, sorted_ids = sort_by_distance_id(dist, ids)
+    return sorted_dist[..., :k], sorted_ids[..., :k]
+
+
 def mask_invalid(dist, ids, valid):
     """Push invalid entries to (+inf, -1) so sorts move them to the tail."""
     return (

@@ -15,6 +15,13 @@ the fixed cost of events around a lone call.
 
 ``wall_ms`` is the same measurement without the sleep: what a caller pays,
 host launch path included.
+
+``slope_ms`` times a loop of steps both ways, as the slope of wall time
+against the step count and as the card's time of the steps issued in
+chunks behind sleeps (the hop profilers' method). ``kernel_ms`` is for a
+call that waits on the card itself (a search reading its loop condition),
+which a sleep in front would only stall: the card's busy time during the
+call in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -111,3 +118,88 @@ def wall_ms(run, n: int) -> list[float]:
         end.synchronize()
         out.append(start.elapsed_time(end))
     return out
+
+
+def host_clock_ms(run) -> float:
+    """Host-clock ms of ``run()``: the CPU's stand-in for ``wall_ms``."""
+    t0 = time.perf_counter()
+    run()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def slope_ms(step, states, iters_lo, iters_hi, reps=4, chunk=8):
+    """(wall, card) ms per iteration of ``step(state, i) -> state``, best
+    of ``reps``; each run starts from a clone of one of ``states`` (tuples
+    of tensors).
+
+    wall: the slope between ``iters_lo`` and ``iters_hi`` iterations issued
+    to an idle card (after a warm-up of each), so fixed per-run costs
+    cancel; the host launch path is included. card: ``iters_lo``
+    iterations issued in chunks of ``chunk``, each behind a sleep kernel
+    (``device_ms``), so the events time the card's work alone; their sum
+    over the iterations. On CPU tensors wall is the host clock's slope and
+    card is None: there is no card to time."""
+    on_card = states[0][0].is_cuda
+
+    def wall(iters, state):
+        state = tuple(t.clone() for t in state)
+
+        def loop(_):
+            s = state
+            for i in range(iters):
+                s = step(s, i)
+
+        return wall_ms(loop, 1)[0] if on_card else host_clock_ms(lambda: loop(0))
+
+    def card(state, hold_ms):
+        box = [tuple(t.clone() for t in state)]
+
+        def run(c):
+            s = box[0]
+            for i in range(c * chunk, (c + 1) * chunk):
+                s = step(s, i)
+            box[0] = s
+
+        times = device_ms(run, iters_lo // chunk, hold_ms=hold_ms)
+        return sum(times) / iters_lo
+
+    wall(iters_lo, states[0])
+    hold_ms = 1.5 * chunk * wall(iters_hi, states[0]) / iters_hi
+    t_lo, t_hi, t_card = [], [], []
+    for i in range(reps):
+        s = states[(i + 1) % len(states)]
+        t_lo.append(wall(iters_lo, s))
+        t_hi.append(wall(iters_hi, s))
+        if on_card:
+            t_card.append(card(s, hold_ms))
+    slope = (min(t_hi) - min(t_lo)) / (iters_hi - iters_lo)
+    return slope, (min(t_card) if on_card else None)
+
+
+def kernel_ms(run) -> float | None:
+    """The card's busy time (ms) while ``run()`` executes: the union of the
+    device activity intervals (kernels, copies, fills) that a
+    ``torch.profiler`` trace of the call records. None when the trace
+    holds no device activity (the profiler could not trace the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        return None
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3

@@ -343,3 +343,59 @@ def test_merge_beams_matches_jax(rng):
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         if not bitonic:  # bitonic networks are not stable for the extras
             np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_query_to_neighbors_distance_matches_jax(rng, metric):
+    """query [B, D] against each query's own R neighbor vectors [B, R, D],
+    zero vectors included (cosine -> 1.0)."""
+    jmetric, metric = metrics(metric.value)
+    q = rng.standard_normal((6, 24)).astype(np.float32)
+    nb = rng.standard_normal((6, 9, 24)).astype(np.float32)
+    q[2] = 0.0
+    nb[1, 4] = 0.0
+    got = tdist.query_to_neighbors_distance(_t(q), _t(nb), metric)
+    want = jdist.query_to_neighbors_distance(
+        jnp.asarray(q), jnp.asarray(nb), jmetric)
+    assert tuple(got.shape) == (6, 9)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("d", [1, 7, 8, 32, 101, 128])
+def test_decode_int4_np_matches_jax(rng, d):
+    """The packed byte format on every bit pattern (both nibbles' sign
+    extension), odd D dropping the pad nibble; exact."""
+    packed = rng.integers(0, 256, (5, 3, (d + 1) // 2)).astype(np.uint8)
+    scales = rng.random((5, 3)).astype(np.float32)
+    got = tq.decode_int4_np(packed, scales, d)
+    want = jq.decode_int4_np(packed, scales, d)
+    assert got.shape == (5, 3, d) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    # Round trip through the planar words of the device layout.
+    v = rng.standard_normal((4, d)).astype(np.float32)
+    words, scale = tq.encode_int4(_t(v))
+    back = tq.decode_int4_np(
+        tq.i4_packed_from_planar_np(words.numpy(), d), scale.numpy(), d)
+    np.testing.assert_array_equal(
+        back, tq.decode_int4(words, scale, d).numpy())
+
+
+@pytest.mark.parametrize("k", [1, 5, 40])
+def test_topk_by_distance_matches_jax_and_a_lexsort(rng, k):
+    """Exact ties on a coarse grid, duplicate ids and (+inf, -1) pads, no
+    signed zeros (lax.sort orders -0.0 before +0.0)."""
+    dist, ids = _ties_and_pads(rng, (8, 40), 25)
+    got_d, got_i = ttopk.topk_by_distance(_t(dist), _t(ids), k)
+    want_d, want_i = jtopk.topk_by_distance(jnp.asarray(dist), jnp.asarray(ids), k)
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    order = np.stack([np.lexsort((i, d)) for d, i in zip(dist, ids)])[:, :k]
+    np.testing.assert_array_equal(got_d.numpy(), np.take_along_axis(dist, order, 1))
+    np.testing.assert_array_equal(got_i.numpy(), np.take_along_axis(ids, order, 1))
+
+
+def test_topk_by_distance_ties_signed_zeros_by_id():
+    dist = torch.tensor([[0.0, -0.0, 0.5, 0.0]])
+    ids = torch.tensor([[5, 3, 1, 4]], dtype=torch.int32)
+    d, i = ttopk.topk_by_distance(dist, ids, 3)
+    assert i.tolist() == [[3, 4, 5]] and d.tolist() == [[0.0, 0.0, 0.0]]
