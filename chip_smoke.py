@@ -6,6 +6,7 @@ Usage, from the repository root:
     python3 chip_smoke.py [--n N] [--queries Q] [--hard-n N] [--gist-n N]
                           [--int8-n N] [--codec-n N] [--int8-nodes-n N]
     python3 chip_smoke.py --multihost-only   # phase 4's multi-process part
+    python3 chip_smoke.py --ab-only [--gist-scale-n N]   # the A/B scripts
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -48,7 +49,11 @@ Phases (each raises on failure, so the script exits non-zero):
    ``beam_search`` at visit caps 48 and 160: per-hop slope and fixed
    intercept, wall; its card column, from a torch.profiler trace, is the
    run's last card work, on fresh tables of the same seed, followed by
-   its wall times once more). Their rows go to standard output,
+   its wall times once more). Last, ``experiments/ab_int4_layout.py``:
+   five formulations of the INT4 edge score (interleaved bytes, planar
+   words, two dot forms, the INT4 kernel) over 2^19 rows, B = 1024, held
+   against ``decode_int4_np``'s distances, then each one's slope; its
+   tables are freed before phase 4. Their rows go to standard output,
    each prefixed with its script's name. The row-gather kernel must launch
    in the A/B, the INT4 kernel in every other step, and ``profile_real``'s
    hops must equal both caps.
@@ -57,7 +62,7 @@ Phases (each raises on failure, so the script exits non-zero):
    pipelined batches, then 20 B=1 queries:
    - INT4 headline: ``make_corpus(N, 128)``, L2, R=64, L_insert=128,
      alpha=1.2, INT4 edges, build batches of 2048; top-10 at L_search=100,
-     search batches of 1024 (``--n``, default 1,000,000); then on the same
+     search batches of 1024 (``--n``, default 500,000); then on the same
      graph the serving options: ``stream=True, lanes=1024`` (rowids
      identical to the lock-step batches), ``beam_width=2``, and a filter to
      a seeded 10% of the rows (every result inside it, recall against a
@@ -76,10 +81,10 @@ Phases (each raises on failure, so the script exits non-zero):
    - GIST: ``make_corpus(N, 960, seed=0x61577)``, cosine, default codec
      (TERNARY), R=64, L_insert=128, build batches of 1024; 1024 queries,
      top-10 at L_search=128, search batches of 256 (``--gist-n``, default
-     400,000: the ``parallel`` phase and the instruments took the room);
+     131,072: the ``parallel`` phase and the instruments took the room);
    - INT8: ``make_corpus(N, 128)``, L2, default codec (INT8), R=64,
      L_insert=128, build batches of 2048; top-10 at L_search=100, search
-     batches of 1024 (``--int8-n``, default 262,144).
+     batches of 1024 (``--int8-n``, default 131,072).
    The index lifecycle rides on two of them: HARD runs ``refine()`` (the
    build-side Vamana second pass and its reachability repair) right after
    its build, as ``bench.py`` does, with one lock-step search before it;
@@ -110,14 +115,15 @@ Phases (each raises on failure, so the script exits non-zero):
    headline's batches must equal the Coordinator's (ids, distances,
    hops) with the INT4 kernel launched once a block; the persistence
    phase's checkpoint loaded into row blocks (``load_global_sharded``),
-   answering with the CLI's ids; a disjoint ``ShardedIndex`` of 4 x N/4
-   rows (its answer == the merge of its shards' own searches, recall@10
-   >= 0.95, exact distances, ``save`` -> ``load_sharded`` -> the same
-   answer); ``distributed_build`` of the first 65,536 rows, then 1,000
+   answering with the CLI's ids; a disjoint ``ShardedIndex`` of 4 x 65,536
+   of the corpus' rows (its answer == the merge of its shards' own
+   searches, recall@10 >= 0.95, exact distances, ``save`` ->
+   ``load_sharded`` -> the same answer); ``distributed_build`` of the
+   first 32,768 rows, then 1,000
    rows deleted and a vacuum, every table and the entry equal to a
    Coordinator's after the same steps; and ``torch.cuda.device_count()``
    processes (this script with ``--multihost-worker``, NCCL) of two
-   shards each over the first 262,144 rows, whose answer must equal one
+   shards each over the first 65,536 rows, whose answer must equal one
    process's ``ShardedIndex`` over the same shards; then, in the same
    processes, one global graph of the first 16,384 rows in two row blocks
    a process (``make_global_mesh``, rows reassembled by NCCL
@@ -135,7 +141,7 @@ Phases (each raises on failure, so the script exits non-zero):
    (``--codec-n``, default 32,768); no kernel may launch; recall@10 must
    reach 0.95 (FLOAT1BIT's, sign-only navigation, is printed).
 6. INT8 node vectors: the headline's corpus scaled and rounded into
-   [-128, 127] (``--int8-nodes-n``, default 65,536), built with INT8 and
+   [-128, 127] (``--int8-nodes-n``, default 32,768), built with INT8 and
    with FLOAT32 node vectors, for L2/INT8 and cosine/TERNARY edges: the
    rowids of the two builds must be identical and the INT8 vector table a
    quarter of the bytes.
@@ -148,6 +154,22 @@ other kernel. recall@10 against a brute-force scan on the card must reach
 distance must equal the exact f64 one to 1e-4. Each search reports QPS,
 hops, visits per query and the hop roofline's ``sol_qps`` and
 ``sol_fraction``. Each path's tensors are freed before the next.
+
+``--ab-only`` runs instead the four A/B scripts of ``experiments/`` that
+build their own indexes, each at its default size: ``ab_insert_width``
+(100,000 rows: insert width x serving width), ``ab_width_iso`` (200,000
+rows: W x L, then INT8 node vectors), ``ab_hard_build`` (HARD 100,000:
+five build configurations, adaptive seeds at L = 100, 150, 200) and
+``paper_scale_gist1m`` (``--gist-scale-n`` rows of its 960-d corpus, 8 row
+blocks on the card, build batches of 1024; then the full 2^20-row GIST1M
+graph allocated as 8 blocks). The counters are set to 0 before every
+build and search; INT4 (TERNARY for the last) must launch in each, and no
+other kernel. Every returned distance must equal the exact f64 one to
+1e-4 (the INT8-node arm's against the rounded vectors it holds); recall@10
+must reach 0.95 on every FLOAT32-node search of the first two, 0.93 on
+``paper_scale_gist1m``, whose blocks must each hold total / 8; HARD's and
+the INT8 arm's recall is printed. It prints a line ``{"ab": {...}}``, the
+card's name and power limit and the ``ok`` line.
 
 Standard output: the profilers' and instruments' rows, a line of
 end-to-end numbers per path, a line ``{"instruments": {...}}`` with every
@@ -903,6 +925,33 @@ def run_profile_real_card(torch, dev, kernels):
     return {"card": card, "wall_after_profiler": after}, launches
 
 
+def run_ab_int4_layout(torch, dev, kernels):
+    """``experiments/ab_int4_layout.py`` as phase 3's last step: its tables
+    (2^19 rows, B = 1024, R = 64, D = 128; ~4.5 GB) built on the card, the
+    five rows held against ``decode_int4_np``'s distances, then each row's
+    slope; the INT4 kernel (its ``kernel`` row) must launch, and no other.
+    The tables are freed before phase 4."""
+    from duckdb_lm_diskann_tpu_torch.experiments import ab_int4_layout
+
+    def printer(line):
+        print(f"ab_int4_layout {line}", flush=True)
+
+    t0 = time.perf_counter()
+    reset_counts(kernels)
+    tables = ab_int4_layout.make_tables(dev)
+    errs = ab_int4_layout.check(tables)
+    for name, err in errs.items():
+        printer(f"agree {name:7s}: max rel err {err:.3e}")
+    times = ab_int4_layout.time_rows(tables, out=printer)
+    launches = check_launches(kernels, kernels["int4"], "ab_int4_layout")
+    del tables
+    _free(torch)
+    out = {"max_rel_err": errs, "times": times, "launches": launches,
+           "s": time.perf_counter() - t0}
+    log(f"ab_int4_layout took {out['s']:.1f} s, {launches} INT4 launches")
+    return out
+
+
 def exact_topk(torch, dev, data, queries, k, metric, chunk=1 << 17):
     """Brute-force top-k rowids on the card (``ab_hard_recall.exact_topk``:
     the port's all_pairs_distance in row chunks, then topk)."""
@@ -1549,9 +1598,16 @@ def store_db_headline(torch, dev, kernels, kernel, coord, data, queries,
     return out
 
 
-# The parallel phase's sizes: the distributed build and delete, and the
-# multi-process disjoint index (two shards a process).
-DIST_BUILD_ROWS = 65_536
+# The parallel phase's sizes: the disjoint index, the distributed build
+# and delete, and the multi-process disjoint index (two shards a process;
+# MULTIHOST_ROWS under --multihost-only). Cut for the run's time: a whole
+# default run took 957.3 s on a fast host and passed 1,200 s on a host
+# ~1.4x slower (NVIDIA H100 80GB HBM3, 700 W), when the disjoint index held
+# the whole headline (4 x 250,000), the distributed build 65,536 rows and
+# the multi-process index 262,144.
+DISJOINT_ROWS = 262_144
+DIST_BUILD_ROWS = 32_768
+PHASE_MULTIHOST_ROWS = 65_536
 MULTIHOST_ROWS = 262_144
 MULTIHOST_TIMEOUT_S = 900
 # The global graph across the processes: rows and queries of its checks.
@@ -1582,7 +1638,7 @@ def _same_tables(torch, one, g):
 
 
 def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
-                      truth, rng, k, batch, store_dir):
+                      rng, k, batch, store_dir):
     """The sharded engines (``parallel/``) on the headline, after
     ``store_db`` (whose directory, ``store_dir``, it removes):
 
@@ -1591,18 +1647,18 @@ def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
       headline's batches equals the Coordinator's (ids, distances, hops);
       ``load_global_sharded`` of ``store_db``'s incremental checkpoint
       answers with the ids of the CLI's ``bench`` on it (batches of 256);
-    - disjoint shards at the headline's size: ``ShardedIndex`` over four
-      shards on the card, built from the corpus (4 x n/4 rows); its answer
-      equals the merge of its four Coordinators' own searches, recall@10
-      >= 0.95, exact distances; ``save`` -> ``load_sharded`` -> the same
-      answer;
+    - disjoint shards: ``ShardedIndex`` over four shards on the card,
+      built from the corpus' first DISJOINT_ROWS rows; its answer equals
+      the merge of its four Coordinators' own searches, recall@10 >= 0.95
+      against those rows' exact top-k, exact distances; ``save`` ->
+      ``load_sharded`` -> the same answer;
     - ``distributed_build`` of the corpus' first DIST_BUILD_ROWS rows into
       four row blocks: every table and the entry equal
       ``Coordinator.bulk_build``'s; then DELETE_ROWS rows deleted and a
       vacuum on both: equal tables again;
     - multi-process: ``torch.cuda.device_count()`` processes (this script
       with ``--multihost-worker``), NCCL, two shards each, over the first
-      MULTIHOST_ROWS rows: ids and distances equal a one-process
+      PHASE_MULTIHOST_ROWS rows: ids and distances equal a one-process
       ``ShardedIndex`` over the same shards; and the global graph across
       those processes (``multihost_global``).
 
@@ -1681,15 +1737,19 @@ def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
     finally:
         shutil.rmtree(tmp)
 
-    # -- disjoint shards at the headline's size ------------------------ #
+    # -- disjoint shards over the corpus' first DISJOINT_ROWS rows ----- #
+    nd = min(DISJOINT_ROWS, n)
+    sub = data[:nd]
+    truth_d = exact_topk(torch, dev, sub, queries, k, cfg.metric_type)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts(kernels)
     t0 = time.perf_counter()
     idx = ShardedIndex(cfg, mesh=mesh4)
-    idx.build(range(n), data, max_batch=2048)
+    idx.build(range(nd), sub, max_batch=2048)
     torch.cuda.synchronize(dev)
+    out["disjoint_rows"] = nd
     out["disjoint_build_s"] = time.perf_counter() - t0
-    out["disjoint_inserts_per_s"] = n / out["disjoint_build_s"]
+    out["disjoint_inserts_per_s"] = nd / out["disjoint_build_s"]
     launches["disjoint_build"] = check_launches(kernels, kernel, "disjoint build")
     reset_counts(kernels)
     t0 = time.perf_counter()
@@ -1707,12 +1767,12 @@ def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
     if not (np.array_equal(ids, np.take_along_axis(u_ids, order, 1))
             and np.array_equal(dists, np.take_along_axis(u_d, order, 1))):
         raise AssertionError("parallel: disjoint answer != the shards' merge")
-    out["disjoint_recall_at_10"] = recall_of(ids, truth, k)
+    out["disjoint_recall_at_10"] = recall_of(ids, truth_d, k)
     out["disjoint_max_dist_err"] = check_exact(
-        "parallel disjoint", data, queries, ids, dists, "l2")
+        "parallel disjoint", sub, queries, ids, dists, "l2")
     if out["disjoint_recall_at_10"] < 0.95:
         raise AssertionError(f"parallel: disjoint recall {out}")
-    log(f"parallel: disjoint 4 x {n // 4} built in "
+    log(f"parallel: disjoint 4 x {nd // 4} built in "
         f"{out['disjoint_build_s']:.1f} s ({out['disjoint_inserts_per_s']:.0f}"
         f" inserts/s, {launches['disjoint_build']} launches); search "
         f"{out['disjoint_qps']:.0f} QPS (one batch of {len(queries)} a "
@@ -1783,7 +1843,8 @@ def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
     _free(torch)
 
     # -- multi-process disjoint shards (NCCL) -------------------------- #
-    out["multihost"] = run_multihost(torch, kernels, kernel, cfg, data, queries, k)
+    out["multihost"] = run_multihost(torch, kernels, kernel, cfg, data, queries,
+                                     k, PHASE_MULTIHOST_ROWS)
     launches["multihost_reference"] = out["multihost"]["reference_launches"]
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
@@ -1791,10 +1852,10 @@ def parallel_headline(torch, dev, kernels, kernel, coord, cfg, data, queries,
     return out
 
 
-def run_multihost(torch, kernels, kernel, cfg, data, queries, k):
+def run_multihost(torch, kernels, kernel, cfg, data, queries, k, rows):
     """``torch.cuda.device_count()`` processes (this script with
     ``--multihost-worker``), NCCL, two disjoint shards each on its own card,
-    over the first MULTIHOST_ROWS rows of ``data``: the merged answer
+    over the first ``rows`` rows of ``data``: the merged answer
     (ids and distances) must equal a one-process ``ShardedIndex`` over the
     same shards on the same cards. A worker that fails or outlives
     MULTIHOST_TIMEOUT_S fails the run. Returns the workers' numbers and the
@@ -1807,7 +1868,7 @@ def run_multihost(torch, kernels, kernel, cfg, data, queries, k):
     from duckdb_lm_diskann_tpu_torch.parallel.mesh import make_mesh
     from duckdb_lm_diskann_tpu_torch.parallel.sharded import ShardedIndex
 
-    mh = min(MULTIHOST_ROWS, len(data))
+    mh = min(rows, len(data))
     world = torch.cuda.device_count()
     wdir = Path(tempfile.mkdtemp(prefix="chip_smoke_multihost_"))
     try:
@@ -1923,7 +1984,8 @@ def multihost_only(n_queries: int) -> int:
         edge_type=EdgeType.parse(p["edge_type"]),
     )
     cfg.validate()
-    res = run_multihost(torch, {"int4": k4}, k4, cfg, data, queries, 10)
+    res = run_multihost(torch, {"int4": k4}, k4, cfg, data, queries, 10,
+                        MULTIHOST_ROWS)
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -1933,9 +1995,234 @@ def multihost_only(n_queries: int) -> int:
     return 0
 
 
+# --ab-only: each script at its own default size (paper_scale_gist1m at
+# --gist-scale-n rows, build batches of GIST_SCALE_BATCH).
+AB_INSERT_N = 100_000
+AB_ISO_N = 200_000
+AB_HARD_N = 100_000
+GIST_SCALE_BATCH = 1024
+
+
+def _ab_step(kernels, kernel, label, fn):
+    """``fn()`` with the counters set to 0 just before; ``kernel`` must
+    have launched and no other. Returns (fn(), launches)."""
+    reset_counts(kernels)
+    res = fn()
+    return res, check_launches(kernels, kernel, label)
+
+
+def _held_search(label, row, data, queries, metric, min_recall):
+    """A search row's checks: hops reported, every returned distance exact
+    to 1e-4, recall@10 >= ``min_recall`` (None: printed only)."""
+    hops = row["hops"]
+    if not hops or min(np.atleast_1d(hops)) <= 0:
+        raise AssertionError(f"{label}: no hops reported ({hops})")
+    err = check_exact(label, data, queries[: len(row["ids"])], row["ids"],
+                      row["dists"], metric)
+    if min_recall is not None and row["recall"] < min_recall:
+        raise AssertionError(f"{label}: recall@10 {row['recall']} < "
+                             f"{min_recall}")
+    return err
+
+
+def _ab_row(row):
+    return {key: v for key, v in row.items()
+            if key not in ("ids", "dists", "queries", "data")}
+
+
+def _ab_hooks(kernels, kernel, script, held):
+    """``step`` and ``report`` hooks for a script's own sweep: each build
+    and search runs with the counters set to 0 just before and must launch
+    ``kernel`` and no other; each row is held by ``held(label, row)`` (its
+    largest distance error) and printed with its launches. Also returns
+    the launches of each step by label."""
+    launches = {}
+
+    def step(label, fn):
+        res, launches[label] = _ab_step(kernels, kernel, f"{script} {label}",
+                                        fn)
+        return res
+
+    def report(label, row):
+        row["max_abs_err"] = held(label, row)
+        row["launches"] = launches[label]
+        print(f"{script} {label} {json.dumps(_ab_row(row))}", flush=True)
+
+    return step, report, launches
+
+
+def ab_insert_width_card(torch, dev, kernels, k4):
+    """``ab_insert_width.sweep`` at its default N: a build at each insert
+    width, each searched at each serving width; recall@10 >= 0.95 held."""
+    from duckdb_lm_diskann_tpu_torch.common.types import MetricType
+    from duckdb_lm_diskann_tpu_torch.experiments import ab_insert_width as m
+    from duckdb_lm_diskann_tpu_torch.experiments.ab_hard_recall import (
+        exact_topk,
+    )
+
+    t0 = time.perf_counter()
+    data, queries = m.corpus(AB_INSERT_N, min(2048, AB_INSERT_N))
+    truth, _ = exact_topk(data, queries, 10, MetricType.L2, dev)
+    step, report, launches = _ab_hooks(
+        kernels, k4, "ab_insert_width",
+        lambda label, row: _held_search(label, row, data, queries, "l2",
+                                        0.95))
+    rows = m.sweep(data, queries, truth, device=dev,
+                   batch=min(1024, len(queries)), step=step, report=report)
+    _free(torch)
+    log(f"ab_insert_width took {time.perf_counter() - t0:.1f} s")
+    return {"n": AB_INSERT_N, "queries": len(queries),
+            "rows": [_ab_row(r) for r in rows], "launches": launches,
+            "s": time.perf_counter() - t0}
+
+
+def ab_width_iso_card(torch, dev, kernels, k4):
+    """``ab_width_iso.run`` at its default N: W x L on FLOAT32 nodes
+    (recall@10 >= 0.95 held), then the INT8-node arm (recall printed;
+    distances exact against the rounded vectors the index holds)."""
+    from duckdb_lm_diskann_tpu_torch.experiments import ab_width_iso as m
+
+    t0 = time.perf_counter()
+    data, queries = m.corpus(AB_ISO_N, m.N_QUERIES)
+    truth = m.ground_truth(data, queries, 10, dev)
+    stored = {t: m.stored_vectors(data, t) for t in ("float32", "int8")}
+    step, report, launches = _ab_hooks(
+        kernels, k4, "ab_width_iso",
+        lambda label, row: _held_search(
+            label, row, stored[row["node_type"]], queries, "l2",
+            0.95 if row["node_type"] == "float32" else None))
+    res = m.run(data, queries, truth, device=dev, step=step, report=report)
+    _free(torch)
+    out = {"n": AB_ISO_N, "queries": len(queries), "launches": launches}
+    for node_type, arm in res.items():
+        out[node_type] = {"build_s": arm["build_s"],
+                          "rows": [_ab_row(r) for r in arm["rows"]]}
+    out["s"] = time.perf_counter() - t0
+    log(f"ab_width_iso took {out['s']:.1f} s")
+    return out
+
+
+def ab_hard_build_card(torch, dev, kernels, k4):
+    """``ab_hard_build.sweep`` at its default N: the five build
+    configurations, each searched at L = 100, 150, 200 with adaptive
+    seeds; HARD's recall is printed, not held."""
+    from duckdb_lm_diskann_tpu_torch.common.types import MetricType
+    from duckdb_lm_diskann_tpu_torch.experiments import ab_hard_build as m
+    from duckdb_lm_diskann_tpu_torch.experiments.ab_hard_recall import (
+        exact_topk,
+    )
+
+    t0 = time.perf_counter()
+    data, queries = m.corpus(AB_HARD_N)
+    truth, _ = exact_topk(data, queries, 10, MetricType.L2, dev)
+    step, report, launches = _ab_hooks(
+        kernels, k4, "ab_hard_build",
+        lambda label, row: _held_search(label, row, data, queries, "l2",
+                                        None))
+    res = m.sweep(data, queries, truth, device=dev, step=step, report=report)
+    _free(torch)
+    out = {"n": AB_HARD_N, "queries": len(queries), "launches": launches}
+    for name, row in res.items():
+        out[name] = {"build_s": row["build_s"], "refine_s": row["refine_s"],
+                     **{f"recall_L{L}": v["recall"]
+                        for L, v in row["by_l"].items()},
+                     **{f"hops_L{L}": v["hops"]
+                        for L, v in row["by_l"].items()}}
+    out["s"] = time.perf_counter() - t0
+    log(f"ab_hard_build took {out['s']:.1f} s")
+    return out
+
+
+def paper_scale_card(torch, dev, kernels, kt, n):
+    """``paper_scale_gist1m`` at ``n`` rows in eight row blocks on the card
+    (each holding total / 8, the Coordinator's own tables empty: held by
+    the script), recall@10 >= 0.93 and exact distances; then the full
+    GIST1M graph (2^20 rows, R = 64) allocated as eight blocks on the card
+    (``tests/test_torch_paper_scale.py``'s ``cuda`` twin)."""
+    from duckdb_lm_diskann_tpu_torch.experiments import paper_scale_gist1m as m
+
+    t0 = time.perf_counter()
+    (gidx, data, rng, res), lb = _ab_step(
+        kernels, kt, "paper_scale_gist1m build",
+        lambda: m.build(n, GIST_SCALE_BATCH, 32, device=dev))
+    found, ls = _ab_step(kernels, kt, "paper_scale_gist1m search",
+                         lambda: m.search(gidx, data, rng))
+    found["recall"] = found["recall_at_10_l100"]
+    res["max_abs_err"] = _held_search("paper_scale_gist1m search", found,
+                                      data, found["queries"], "cosine", 0.93)
+    res.update(_ab_row(found), launches_build=lb, launches=ls)
+    del gidx, data
+    _free(torch)
+    res["s"] = time.perf_counter() - t0
+    print(f"paper_scale_gist1m {json.dumps(res)}", flush=True)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap = m.capacity(dev)
+    m.check_memory_model(cap)
+    cap["s"] = time.perf_counter() - t1
+    cap["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    _free(torch)
+    print(f"paper_scale_gist1m capacity {json.dumps(cap)}", flush=True)
+    log(f"paper_scale_gist1m took {time.perf_counter() - t0:.1f} s")
+    return {"run": res, "capacity": cap}
+
+
+def ab_only(gist_scale_n: int) -> int:
+    """``--ab-only``: the four index-building A/B scripts on the card, in
+    the order ab_insert_width, ab_width_iso, ab_hard_build,
+    paper_scale_gist1m; prints their numbers, the card's name and power
+    limit, and the ``ok`` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    from duckdb_lm_diskann_tpu_torch.kernels import _build
+    from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
+    from duckdb_lm_diskann_tpu_torch.kernels import int8_frontier as k8
+    from duckdb_lm_diskann_tpu_torch.kernels import row_gather as kg
+    from duckdb_lm_diskann_tpu_torch.kernels import ternary_frontier as kt
+
+    kernels = {"int4": k4, "ternary": kt, "int8": k8, "row_gather": kg}
+    _build.build_libraries([k4.LIBRARY, kt.LIBRARY])
+    res = {
+        "ab_insert_width": ab_insert_width_card(torch, dev, kernels, k4),
+        "ab_width_iso": ab_width_iso_card(torch, dev, kernels, k4),
+        "ab_hard_build": ab_hard_build_card(torch, dev, kernels, k4),
+        "paper_scale_gist1m": paper_scale_card(torch, dev, kernels, kt,
+                                               gist_scale_n),
+    }
+    leaked = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "bench", "benchmarks",
+                               "duckdb_lm_diskann_tpu")
+    )
+    if leaked:
+        raise AssertionError(f"the A/B scripts imported {leaked}")
+    res["s"] = time.perf_counter() - t_start
+    log(f"--ab-only took {res['s']:.1f} s")
+    print(json.dumps({"ab": res}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
 def multihost_worker(rank: int, world: int, init: str, wdir: str) -> int:
     """One process of the parallel phase's multi-process run: NCCL on card
-    ``rank``, two disjoint shards of the first MULTIHOST_ROWS rows there;
+    ``rank``, two disjoint shards of the rows it is given there;
     process 0 writes the merged answer and its numbers into ``wdir``."""
     from pathlib import Path
 
@@ -2216,8 +2503,8 @@ def run_path(torch, dev, kernels, name, n, n_queries, k=10):
     par = None
     if p.get("parallel"):
         par = parallel_headline(
-            torch, dev, kernels, kernel, coord, cfg, data, queries, truth, rng,
-            k, batch, store["tmp_dir"])
+            torch, dev, kernels, kernel, coord, cfg, data, queries, rng, k,
+            batch, store["tmp_dir"])
     if p.get("profile_insert"):  # last: it inserts new rows
         instruments["profile_insert"] = run_profile_insert(
             torch, kernels, kernel, coord, data, p["max_batch"], name)
@@ -2378,35 +2665,46 @@ def run_int8_nodes(torch, dev, kernels, n, n_queries):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=1_000_000)
+    # 500,000 headline rows (bench.py's 1,000,000 halved) for the run's time:
+    # with every other cut below, the run still took 789.7 s on a host that
+    # passes 1,200 s ~1.3x slower; the headline's build, store and parallel
+    # phases took 128.5 + 109.9 + 154.6 s of it at 1,000,000.
+    ap.add_argument("--n", type=int, default=500_000)
     ap.add_argument("--queries", type=int, default=4096)
     ap.add_argument("--hard-n", type=int, default=100_000)
     ap.add_argument("--hard-queries", type=int, default=2048)
-    # 400,000: room for the parallel phase (~265-346 s) and the instruments
-    # (~110 s); at 500,000 the whole run took 1,129 s of its 1,200 on a slow
-    # host (GIST's build 155.6 s there; an NVIDIA H100 80GB HBM3 at 700 W).
-    ap.add_argument("--gist-n", type=int, default=400_000)
+    # GIST, INT8 and the INT8 nodes are cut so that the whole run stays near
+    # half its 1,200 s on a fast host: at 400,000 / 262,144 / 65,536 rows it
+    # took 957.3 s on one and passed 1,200 s on a host ~1.4x slower (GIST's
+    # build 109.7 s and 151.7 s; NVIDIA H100 80GB HBM3 at 700 W).
+    ap.add_argument("--gist-n", type=int, default=131_072)
     ap.add_argument("--gist-queries", type=int, default=1024)
-    # 262,144: the smoke's whole run stays near half its limit.
-    ap.add_argument("--int8-n", type=int, default=262_144)
+    ap.add_argument("--int8-n", type=int, default=131_072)
     ap.add_argument("--int8-queries", type=int, default=4096)
     # 32,768: the whole run stays under 850 s (65,536 rows took it to
     # 884 s on a slower H100 host).
     ap.add_argument("--codec-n", type=int, default=32_768)
     ap.add_argument("--codec-queries", type=int, default=4096)
-    ap.add_argument("--int8-nodes-n", type=int, default=65_536)
+    ap.add_argument("--int8-nodes-n", type=int, default=32_768)
     ap.add_argument("--int8-nodes-queries", type=int, default=4096)
     ap.add_argument("--multihost-only", action="store_true",
                     help="run only the parallel phase's multi-process part "
                          "(on every visible card) and print its numbers")
     ap.add_argument("--multihost-worker", nargs=4, metavar=("RANK", "WORLD", "INIT", "DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--ab-only", action="store_true",
+                    help="run only the four index-building A/B scripts of "
+                         "experiments/ and print their numbers")
+    ap.add_argument("--gist-scale-n", type=int, default=262_144,
+                    help="rows of paper_scale_gist1m under --ab-only")
     args = ap.parse_args()
     if args.multihost_worker:
         r, w, init, wdir = args.multihost_worker
         return multihost_worker(int(r), int(w), init, wdir)
     if args.multihost_only:
         return multihost_only(args.queries)
+    if args.ab_only:
+        return ab_only(args.gist_scale_n)
 
     import torch
 
@@ -2451,6 +2749,8 @@ def main() -> int:
     profile, hop_instruments, phase3 = run_profiler(torch, dev, kernels)
     records["gather"]["launches"] = phase3["pipelined_gather"]
     records["gather4"]["launches"] = phase3["pipelined_gather4"]
+    layout = hop_instruments["ab_int4_layout"] = run_ab_int4_layout(
+        torch, dev, kernels)
     t_paths = time.perf_counter()
     metrics = {
         "int4_headline": run_path(torch, dev, kernels, "int4_headline",
@@ -2469,7 +2769,10 @@ def main() -> int:
     log(f"main paths took {time.perf_counter() - t_paths:.1f} s")
     real_card, real_card_launches = run_profile_real_card(torch, dev, kernels)
     hop_instruments["profile_real"].update(real_card)
-    records["int4"]["launches"] = phase3["int4"] + real_card_launches
+    records["int4"]["launches"] = (phase3["int4"] + layout["launches"]
+                                   + real_card_launches)
+    # ab_int4_layout's slope of the shipped kernel, beside #1's own times.
+    records["int4"]["ab_int4_layout_slope_ms"] = layout["times"]["kernel"]
     records["ternary"]["launches"] = records["int8"]["launches"] = 0
     for name in ("int4_headline", "hard", "gist_ternary", "int8_l2"):
         path = metrics[name]

@@ -62,11 +62,9 @@ def measure(coord, queries, truth_ids, eps_thr, tag, opts, *, k=10, reps=3,
     for _ in range(reps):
         coord.search(queries, k, batch_size=batch_size, **opts)
     qps = nq * reps / (time.perf_counter() - t0) if reps else None
-    hit = [len(set(t) & set(r)) / k
-           for t, r in zip(truth_ids.tolist(), ids.tolist())]
     return {
         "tag": tag,
-        "recall": float(np.mean(hit)),
+        "recall": recall(ids, truth_ids, k),
         "eps1": float((dists <= eps_thr[:, None]).mean()),
         "qps": qps,
         "warm_s": warm,
@@ -74,6 +72,24 @@ def measure(coord, queries, truth_ids, eps_thr, tag, opts, *, k=10, reps=3,
         **opts,
         "ids": ids,
     }
+
+
+def recall(ids, truth_ids, k) -> float:
+    """Strict recall@k: the mean share of each query's exact top-k rowids
+    (``truth_ids`` [nq, >= k]) among its returned ``ids`` [nq, k]."""
+    return float(np.mean([
+        len(set(t[:k]) & set(r)) / k
+        for t, r in zip(np.asarray(truth_ids).tolist(),
+                        np.asarray(ids).tolist())
+    ]))
+
+
+def rowids_of(coord, slots) -> np.ndarray:
+    """The rowids of ``coord``'s ``slots`` (i64, -1 where a slot is -1)."""
+    slots = np.asarray(slots)
+    return np.where(slots >= 0,
+                    coord.capture_view().slot_rowids[np.maximum(slots, 0)],
+                    -1)
 
 
 def sweep(coord, queries, truth_ids, truth_dists, *, k=10, reps=3,

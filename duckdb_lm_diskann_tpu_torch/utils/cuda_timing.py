@@ -16,6 +16,9 @@ the fixed cost of events around a lone call.
 ``wall_ms`` is the same measurement without the sleep: what a caller pays,
 host launch path included.
 
+``synced_s`` is a long call's host-clock seconds with the card's queue
+drained at the end.
+
 ``slope_ms`` times a loop of steps both ways, as the slope of wall time
 against the step count and as the card's time of the steps issued in
 chunks behind sleeps (the hop profilers' method). ``kernel_ms`` is for a
@@ -125,6 +128,18 @@ def host_clock_ms(run) -> float:
     t0 = time.perf_counter()
     run()
     return 1e3 * (time.perf_counter() - t0)
+
+
+def synced_s(device, run):
+    """(run(), host-clock seconds), the card's queue drained before the
+    clock stops when ``device`` is a CUDA device: the time of a long call
+    (a build, a search) as its caller waits for it."""
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    res = run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return res, time.perf_counter() - t0
 
 
 def slope_ms(step, states, iters_lo, iters_hi, reps=4, chunk=8):

@@ -38,10 +38,10 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    # cli, common (1), core (5), db (6), experiments (10), kernels (5),
+    # cli, common (1), core (5), db (6), experiments (15), kernels (5),
     # ops (4), parallel (4), store (4), utils (5) and the nine subpackages
     # themselves.
-    assert len(names) >= 54, names
+    assert len(names) >= 59, names
     pkg = "duckdb_lm_diskann_tpu_torch."
     for mod in (
         "experiments.profile_hop", "experiments.profile_delete",
@@ -53,5 +53,8 @@ def test_port_imports_no_jax():
         "parallel.multihost", "experiments.profile_real",
         "experiments.profile_searcher", "experiments.profile_insert",
         "experiments.ab_stream", "experiments.ab_hard_recall",
+        "experiments.ab_insert_width", "experiments.ab_width_iso",
+        "experiments.ab_hard_build", "experiments.paper_scale_gist1m",
+        "experiments.ab_int4_layout",
     ):
         assert pkg + mod in names
