@@ -402,17 +402,24 @@ def insert_step(
     recip_rounds: int,
     all_valid: bool = False,
     journal: UndoJournal | None = None,
+    rec=None,
 ) -> GraphArrays:
     """One whole batched insert, in place: store, candidate search, prune,
     neighbor write, reciprocal rounds, in-link guarantee and the edge-code
     writes. With a ``journal`` every overwritten row is saved first, so a
-    failure anywhere in the step can be rolled back exactly."""
+    failure anywhere in the step can be rolled back exactly. ``rec`` (a
+    ``utils.tracing.Recorder`` or None) records the ``insert.*`` spans of
+    each part."""
     M = new_slots.shape[0]
     dev = new_slots.device
     vectors = arrays.vectors
     neighbors = arrays.neighbors
     cap = arrays.capacity
+    if rec is not None:
+        rec.open("insert.store")
     store_vectors(arrays, new_slots, new_vecs, journal)
+    if rec is not None:
+        rec.switch("insert.candidates", rows=M)
     # Pass 1: search the pre-batch graph (new slots are unreachable, so the
     # caller's no-tombstones assertion holds), prune over the FULL visited
     # set (vectordiskann.c:1571-1586), write the new rows.
@@ -424,11 +431,19 @@ def insert_step(
         l_insert=params.l_insert,
         beam_width=1 if full_visited else params.insert_beam_width,
         assume_all_valid=all_valid,
+        rec=rec,
     )
+    if rec is not None:
+        rec.close(visits=res.visited_count)
+        rec.open("insert.prune")
     sel = batched_robust_prune(
         arrays, new_vecs, res.visited_slots, new_slots, params=params
     )
+    if rec is not None:
+        rec.switch("insert.write")
     write_neighbor_rows(arrays, new_slots, sel, params=params, journal=journal)
+    if rec is not None:
+        rec.switch("insert.reciprocal")
 
     # Pass 2: reciprocal pairs (target, source), grouped by target; a
     # pair's rank within its target's group is the round that applies it.
@@ -472,6 +487,8 @@ def insert_step(
 
     # In-link guarantee: force-link each rejected newcomer at its nearest
     # selected neighbor; duplicate force targets resolve by rank.
+    if rec is not None:
+        rec.switch("insert.force")
     acc_new = accepted[new_slots.clamp(0, cap - 1).long()] | (new_slots < 0)
     nearest = sel[:, 0]
     orphan = ~acc_new & (nearest >= 0) & (new_slots >= 0)
@@ -497,12 +514,16 @@ def insert_step(
     if full_visited:
         # Compacted lists move slot positions: every changed target and
         # every force target re-encodes its whole row.
+        if rec is not None:
+            rec.switch("insert.refresh")
         refresh = torch.unique(
             torch.cat([torch.nonzero(changed).squeeze(1), t_fs[f_ok].long()])
         )
         refresh_edge_codes(
             arrays, refresh.to(torch.int32), params=params, journal=journal
         )
+    if rec is not None:
+        rec.close()
     return arrays
 
 
@@ -514,11 +535,13 @@ def insert_batch(
     params: GraphParams,
     all_valid: bool = False,
     journal: UndoJournal | None = None,
+    rec=None,
 ) -> GraphArrays:
     """Insert a batch of nodes (in place). The caller owns slot allocation
     and capacity growth. A first insert into an empty graph (entry < 0) must
     be a single node, which becomes the entry point with no edges.
-    ``journal`` (see insert_step) records every row the batch overwrites."""
+    ``journal`` (see insert_step) records every row the batch overwrites;
+    ``rec`` its spans."""
     dev = arrays.device
     M = len(new_slots)
     slots = torch.as_tensor(np.asarray(new_slots, np.int32), device=dev)
@@ -536,6 +559,7 @@ def insert_batch(
         recip_rounds=1 if full else _RECIP_ROUNDS,
         all_valid=all_valid,
         journal=journal,
+        rec=rec,
     )
 
 

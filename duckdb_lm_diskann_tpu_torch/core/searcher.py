@@ -27,6 +27,10 @@ the loop condition only every ``_CHECK_EVERY`` hops (each read waits for
 the device); ``hops`` adds the device-side condition of every hop, so it
 counts exactly the iterations of the JAX while-loops.
 
+Each entry point takes ``rec``, the caller's ``utils.tracing.Recorder`` or
+None, and records its ``search.*`` spans there (``utils/tracing.py`` names
+them).
+
 Frontier scoring of INT4, INT8 and TERNARY goes through the codec's kernel
 module (``kernels.int4_frontier``, ``kernels.int8_frontier``,
 ``kernels.ternary_frontier``): the Hopper kernel for CUDA tensors, its plain
@@ -195,15 +199,27 @@ def _pad_beam(sd, ss, L):
     )
 
 
+def _check(flag: torch.Tensor, rec) -> bool:
+    """``bool(flag)``: the host's blocking read of the loop condition."""
+    if rec is None:
+        return bool(flag)
+    rec.open("search.check")
+    go = bool(flag)
+    rec.close()
+    return go
+
+
 def _hop(
     arrays, params, queries, q_planes, beam_dist, beam_slot, beam_vis,
-    seeds_b, seed_vis, E, assume_all_valid,
+    seeds_b, seed_vis, E, assume_all_valid, rec=None,
 ):
     """One hop of every lane: visit the E closest unvisited beam entries,
     take their exact distances, score their neighbors' cached codes and
     merge the new candidates into the beam. ``beam_vis`` and ``seed_vis``
     are updated in place. Returns (beam_dist, beam_slot, beam_vis, cur
     i32[B, E], active bool[B, E], exact f32[B, E])."""
+    if rec is not None:
+        rec.open("search.hop.visit")
     B, L = beam_slot.shape
     unvis = ~beam_vis & (beam_slot >= 0)  # [B, L]
     # The beam is sorted: the first unvisited entries are the closest
@@ -234,6 +250,8 @@ def _hop(
     ).any(1)
 
     # Frontier: the nodes' R neighbor slots and their cached codes.
+    if rec is not None:
+        rec.switch("search.hop.score")
     R = params.r
     nbrs = arrays.neighbors.index_select(0, cur_f)  # [B*E, R]
     live = nbrs >= 0
@@ -246,6 +264,8 @@ def _hop(
     # Skip neighbors already in the beam or already-visited seeds (see the
     # JAX searcher for why this replaces the visited-list scan). Edges to
     # this hop's own visits are in the beam, so in_beam covers them.
+    if rec is not None:
+        rec.switch("search.hop.merge")
     in_beam = (
         (nbrs[:, :, None] == beam_slot[:, None, :])
         & (beam_slot >= 0)[:, None, :]
@@ -268,6 +288,8 @@ def _hop(
     beam_slot = torch.where(
         torch.isinf(beam_dist), torch.full_like(beam_slot, -1), beam_slot
     )
+    if rec is not None:
+        rec.close()
     return beam_dist, beam_slot, beam_vis, cur, active, exact
 
 
@@ -288,6 +310,7 @@ def beam_search(
     beam_width: int = 1,
     allowed: torch.Tensor | None = None,  # bool[capacity] result filter
     assume_all_valid: bool = False,
+    rec=None,
 ) -> SearchResult:
     """Batched beam search. Returns the top-k and the visited log (the
     insert path consumes the visited set).
@@ -309,6 +332,8 @@ def beam_search(
     seeds = _as_seeds(entry_slot, dev)
     if seeds.shape[-1] > L:
         raise ValueError("seed count exceeds l_search")
+    if rec is not None:
+        rec.open("search.seed")
     q_planes = _query_planes(params, queries)
     seeds_b, sd, ss = _seed_prefix(
         arrays, queries, seeds, params.metric, assume_all_valid
@@ -323,16 +348,22 @@ def beam_search(
     vis_dist = torch.full((B, V + 1), INF, device=dev)
     vis_cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
     hops = torch.zeros((), dtype=torch.int32, device=dev)
+    if rec is not None:
+        rec.close()
 
     for it in range(-(-V // E)):  # while it * E < V
         any_unvis = (~beam_vis & (beam_slot >= 0)).any()
-        if it % _CHECK_EVERY == 0 and not bool(any_unvis):
+        if it % _CHECK_EVERY == 0 and not _check(any_unvis, rec):
             break
+        if rec is not None:
+            rec.open("search.hop")
         hops += any_unvis.to(torch.int32)
         beam_dist, beam_slot, beam_vis, cur, active, exact = _hop(
             arrays, params, queries, q_planes, beam_dist, beam_slot,
-            beam_vis, seeds_b, seed_vis, E, assume_all_valid,
+            beam_vis, seeds_b, seed_vis, E, assume_all_valid, rec,
         )
+        if rec is not None:
+            rec.open("search.hop.log")
         # Append the visits at disjoint positions vis_cnt, vis_cnt+1, ...
         order = active.to(torch.int32).cumsum(-1) - 1
         pos = torch.where(active, vis_cnt[:, None] + order, V)
@@ -340,7 +371,12 @@ def beam_search(
         vis_slot.scatter_(1, pos, cur)
         vis_dist.scatter_(1, pos, exact)
         vis_cnt += active.sum(-1, dtype=torch.int32)
+        if rec is not None:
+            rec.close()  # search.hop.log
+            rec.close()  # search.hop
 
+    if rec is not None:
+        rec.open("search.rerank")
     # Final pass: top-k = the k best (exact dist, slot) among visited nodes,
     # deduplicated (vectordiskann.c:1091-1110).
     vis_slot, vis_dist = vis_slot[:, :V], vis_dist[:, :V]
@@ -353,6 +389,8 @@ def beam_search(
     topk_slots = torch.where(
         torch.isinf(topk_dists), torch.full_like(topk_slots, -1), topk_slots
     )
+    if rec is not None:
+        rec.close()
     return SearchResult(
         topk_slots=topk_slots,
         topk_dists=topk_dists,
@@ -375,6 +413,7 @@ def beam_search_many(
     beam_width: int = 1,
     allowed: torch.Tensor | None = None,
     assume_all_valid: bool = False,
+    rec=None,
 ) -> ManySearchResult:
     """NB lock-step batches searched one after another: the JAX package's
     ``lax.scan`` of beam_search as a plain loop. Results are identical to
@@ -393,6 +432,7 @@ def beam_search_many(
             beam_width=beam_width,
             allowed=allowed,
             assume_all_valid=assume_all_valid,
+            rec=rec,
         )
         outs.append(
             (res.topk_slots, res.topk_dists, res.visited_count, res.hops)
@@ -412,6 +452,7 @@ def beam_search_stream(
     max_visits: int = 0,
     allowed: torch.Tensor | None = None,
     assume_all_valid: bool = False,
+    rec=None,
 ) -> StreamSearchResult:
     """Streaming beam search with continuous lane refill (E = 1): the
     moment a lane's beam has no unvisited entry, the lane writes its result
@@ -436,6 +477,8 @@ def beam_search_stream(
     seeds = _as_seeds(entry_slot, dev)
     if seeds.shape[-1] > L:
         raise ValueError("seed count exceeds l_search")
+    if rec is not None:
+        rec.open("search.seed")
     q_planes_all = _query_planes(params, queries)
     # Every query's seeded beam prefix, in one pass.
     _, sd_all, ss_all = _seed_prefix(
@@ -469,13 +512,17 @@ def beam_search_stream(
     # Generous cap: perfect packing needs ~NQ*V/B iterations; the slack
     # covers ragged refill tails (the JAX package's bound).
     max_iters = (NQ * V) // B + 2 * V + 8
+    if rec is not None:
+        rec.close()
 
     for it in range(max_iters):
         go = (next_q < NQ) | (lane_q >= 0).any()
-        if it % _CHECK_EVERY == 0 and not bool(go):
+        if it % _CHECK_EVERY == 0 and not _check(go, rec):
             break
         # Once `go` is false every lane is dead and the queue is empty, so
         # the body below changes nothing: it stays false.
+        if rec is not None:
+            rec.open("search.hop")
         hops += go.to(i32)
         needs = ~(~beam_vis & (beam_slot >= 0)).any(-1)  # converged or idle
 
@@ -514,7 +561,7 @@ def beam_search_stream(
         # make their first visit in this same iteration).
         beam_dist, beam_slot, beam_vis, cur, active, exact = _hop(
             arrays, params, q_lane, p_lane, beam_dist, beam_slot, beam_vis,
-            seed_slots, seed_vis, 1, assume_all_valid,
+            seed_slots, seed_vis, 1, assume_all_valid, rec,
         )
         vis_cnt = vis_cnt + active[:, 0].to(i32)
 
@@ -533,6 +580,8 @@ def beam_search_stream(
         top_dist = torch.where(keep, top_dist, torch.where(here, d_new, shift_d))
         top_slot = torch.where(keep, top_slot, torch.where(here, s_new, shift_s))
         top_slot = torch.where(torch.isinf(top_dist), -1, top_slot)
+        if rec is not None:
+            rec.close()
 
     return StreamSearchResult(
         topk_slots=out_slot[:NQ],
@@ -579,6 +628,7 @@ def search_for_initial_candidates(
     l_insert: int,
     beam_width: int = 1,
     assume_all_valid: bool = False,
+    rec=None,
 ) -> SearchResult:
     """Insert-path candidate search: beam search with L = k = L_insert
     (Searcher::SearchForInitialCandidates, core/Searcher.cpp:275-294) and a
@@ -599,4 +649,5 @@ def search_for_initial_candidates(
         ),
         beam_width=beam_width,
         assume_all_valid=assume_all_valid,
+        rec=rec,
     )

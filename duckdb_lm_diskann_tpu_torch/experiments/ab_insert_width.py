@@ -15,9 +15,10 @@ exact top-k and the hops of each batch.
 which a caller checks each build and search of a sweep.
 
 The steady insert rate is the rows of the build's batches after the first
-(``coord.build_timings[1:]``) over their summed seconds: the first batch
-pays the kernel's load and the card's warm-up. (The JAX script counted any
-batch over 1 s as compile time; the port compiles nothing.)
+over their summed seconds, read from the build's ``insert.step`` spans
+(``utils/tracing.py``; ``sweep`` builds with the recorder on): the first
+batch pays the kernel's load and the card's warm-up. (The JAX script
+counted any batch over 1 s as compile time; the port compiles nothing.)
 
 Run alone, it builds its own indexes:
 
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core.searcher import beam_search
+from ..utils import tracing
 from ..utils.cuda_timing import synced_s
 from .ab_hard_recall import exact_topk, recall, rowids_of
 
@@ -74,13 +76,20 @@ def build(data, *, device, max_batch=1024, refine=False, **overrides):
     return coord, build_s, refine_s
 
 
-def steady_rate(coord):
-    """Rows a second over the build's batches after the first
-    (``coord.build_timings[1:]``); None for a one-batch build."""
-    steady = coord.build_timings[1:]
+def steady_rate(spans):
+    """Rows a second over the batches after the first of the last
+    ``insert`` call in ``spans`` (``tracing.spans()`` of a build made with
+    the recorder on): its ``insert.step`` spans' rows over their summed
+    seconds. None for a one-batch build."""
+    roots = [s for s in spans if s.parent is None and s.name == "insert"]
+    if not roots:
+        return None
+    steady = [s for s in spans
+              if s.call == roots[-1].call and s.name == "insert.step"][1:]
     if not steady:
         return None
-    return sum(rows for rows, _ in steady) / sum(s for _, s in steady)
+    return (sum(s.attrs["rows"] for s in steady)
+            / sum(s.t1 - s.t0 for s in steady))
 
 
 def run_step(label, fn):
@@ -146,9 +155,14 @@ def sweep(data, queries, truth_ids, *, device, batch=1024, step=run_step,
     the rows, with their ids and distances."""
     rows = []
     for w_ins in INSERT_WIDTHS:
-        coord, build_s, _ = step(f"build W_insert={w_ins}", lambda: build(
-            data, device=device, insert_beam_width=w_ins))
-        rate = steady_rate(coord)
+        tracing.clear()
+        tracing.enable()
+        try:
+            coord, build_s, _ = step(f"build W_insert={w_ins}", lambda: build(
+                data, device=device, insert_beam_width=w_ins))
+        finally:
+            tracing.disable()
+        rate = steady_rate(tracing.spans())
         for w_srv in SERVE_WIDTHS:
             label = f"W_insert={w_ins} W_serve={w_srv}"
             row = {"insert_width": w_ins, "build_s": build_s,

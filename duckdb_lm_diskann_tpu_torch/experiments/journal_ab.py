@@ -33,9 +33,9 @@ from ..utils.corpora import make_corpus
 class UnjournaledCoordinator(Coordinator):
     """The Coordinator with its insert batches run without a journal."""
 
-    def _insert_step(self, arrays, slots, vectors, entry_slot, all_valid):
+    def _insert_step(self, arrays, slots, vectors, entry_slot, all_valid, rec):
         insert_batch(arrays, slots, vectors, entry_slot, self.params,
-                     all_valid=all_valid)
+                     all_valid=all_valid, rec=rec)
 
 
 def main(argv) -> int:

@@ -33,6 +33,7 @@ from duckdb_lm_diskann_tpu_torch.ops.quantize import (
     decode_int4_np,
     i4_planar_from_packed_np,
 )
+from duckdb_lm_diskann_tpu_torch.utils import tracing
 from tests import torch_record_ab as rec
 from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
@@ -65,12 +66,18 @@ def test_ab_insert_width_matches_jax(insert_width, manifold, jax_answers):
     truth, _ = ab_hard_recall.exact_topk(data, queries, rec.K, MetricType.L2,
                                          "cpu")
     np.testing.assert_array_equal(truth, jax_answers["insert_width/truth"])
-    coord, build_s, refine_s = ab_insert_width.build(
-        data, device="cpu", max_batch=rec.MAX_BATCH, r=rec.R,
-        l_insert=rec.L_INSERT, alpha=rec.ALPHA,
-        insert_beam_width=insert_width)
+    tracing.clear()
+    tracing.enable()
+    try:
+        coord, build_s, refine_s = ab_insert_width.build(
+            data, device="cpu", max_batch=rec.MAX_BATCH, r=rec.R,
+            l_insert=rec.L_INSERT, alpha=rec.ALPHA,
+            insert_beam_width=insert_width)
+    finally:
+        tracing.disable()
     assert build_s > 0 and refine_s == 0.0
-    assert ab_insert_width.steady_rate(coord) > 0
+    assert ab_insert_width.steady_rate(tracing.spans()) > 0
+    tracing.clear()
     assert coord.params.insert_beam_width == insert_width
     for width in rec.SERVE_WIDTHS:
         row = ab_insert_width.serve(coord, queries, truth, width, k=rec.K,

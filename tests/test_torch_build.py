@@ -20,6 +20,7 @@ from duckdb_lm_diskann_tpu_torch.core.builder import (
     build_schedule,
 )
 from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
+from duckdb_lm_diskann_tpu_torch.utils import tracing
 
 from tests.oracle import OracleGraph, brute_force_topk, exact_distance
 from tests.test_build import clustered_data
@@ -109,9 +110,16 @@ def test_ramp_follows_graph_size(rng):
     dims, n = 8, 300
     data = rng.standard_normal((n, dims)).astype(np.float32)
     port = Coordinator(_config(dims), initial_capacity=n, device="cpu")
-    port.bulk_build(list(range(n)), data, max_batch=64)
+    tracing.clear()
+    tracing.enable()
+    try:
+        port.bulk_build(list(range(n)), data, max_batch=64)
+    finally:
+        tracing.disable()
     # Bootstrap node, then widths 1, 2, 4, ... capped at max_batch.
-    widths = [b for b, _ in port.build_timings]
+    widths = [s.attrs["rows"] for s in tracing.spans()
+              if s.name == "insert.step"]
+    tracing.clear()
     assert widths == [1, 2, 4, 8, 16, 32, 64, 64, 64, 44]
     assert build_schedule(n - 1, 64)[:7] == widths[:7]
     assert port.count == n and int(port.arrays.valid.sum()) == n
