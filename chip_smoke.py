@@ -11,8 +11,8 @@ Usage, from the repository root:
 Phases (each raises on failure, so the script exits non-zero):
 
 1. Setup: CUDA must be available; TF32 is switched off; the card's name and
-   power limit are read from ``nvidia-smi``; the four kernels (INT4,
-   TERNARY and INT8 frontier scorers, row gather) are built from
+   power limit are read from ``nvidia-smi``; the five kernels (INT4,
+   TERNARY and INT8 frontier scorers, row gather, beam merge) are built from
    ``duckdb_lm_diskann_tpu_torch/csrc`` with one nvcc each, all started
    together (into the package's ``_build/``).
 2. Each kernel against its plain PyTorch version at its main path's shapes,
@@ -39,8 +39,16 @@ Phases (each raises on failure, so the script exits non-zero):
    INT4 and INT8 at D = 30, 40, 100, 128, INT8 over every byte value),
    with zero scales, a zero query, repeated and out-of-range rows and
    misaligned table views: both the bulk-copy and the vector branch must
-   run. The time of an empty kernel by both methods
-   (``timing_floor_ms``, ``timing_floor_train_ms``) is printed beside them.
+   run. The beam merge (no TPU kernel; the hop's merge) bit for bit against
+   its plain form at the cells' lane shapes (B, L, E, R) = (1024, 100, 1,
+   64), (256, 128, 1, 64), (1024, 128, 1, 64), (1, 10, 1, 64), (2048, 128,
+   2, 64) and (64, 128, 4, 64), with special distances (+-0.0, +-inf, NaN)
+   and without, written in place in one launch a call; then timed at B =
+   1,024, L = 100, R = 64 beside the plain form. Every timed search of
+   phase 4 must launch it once a hop it ran: at least its counted hops, and
+   as many times as the frontier kernel on one Coordinator. The time of an
+   empty kernel by both methods (``timing_floor_ms``,
+   ``timing_floor_train_ms``) is printed beside them.
 3. The hop profilers at 2^20 rows: ``experiments/profile_hop.py``'s
    knockout rows of a copy of the INT4 hop, then its row-gather A/B; then
    on one shared set of random tables ``experiments/profile_searcher.py``
@@ -671,6 +679,10 @@ def float_ring_cases(torch, dev, gen, codec, n_rows, curs, view):
 
 
 def reset_counts(kernels):
+    """Sets the kernels' launch counts, and the beam merge's, to 0."""
+    from duckdb_lm_diskann_tpu_torch.kernels import beam_merge
+
+    beam_merge.LAUNCHES = 0
     for mod in kernels.values():
         mod.LAUNCHES = 0
         if hasattr(mod, "LAUNCHES4"):
@@ -830,6 +842,77 @@ def check_row_gather(torch, dev, n_rows=1 << 20, b=1024, reps=20,
         {"name": "pipelined_gather", **base, "replaces": f"{ref}:251", **one},
         {"name": "pipelined_gather4", **base, "replaces": f"{ref}:313", **four},
     )
+
+
+def check_beam_merge(torch, dev, reps=20):
+    """The beam-merge kernel against its plain form, bit for bit, at the
+    cells' lane shapes (``tests/test_torch_beam_merge.py``'s CARD_SHAPES,
+    E = 1, 2 and 4, plain distances and special ones: +-0.0, +-inf, NaN),
+    in place and one launch a call; then its times at B = 1,024, L = 100,
+    R = 64 beside the plain form's on the card. Returns its record."""
+    from duckdb_lm_diskann_tpu_torch.kernels import beam_merge as bm
+    from tests.test_torch_beam_merge import CARD_SHAPES, random_lanes
+
+    t0 = time.perf_counter()
+    cases = 0
+    for b, l, e, r in CARD_SHAPES:
+        for special in (False, True):
+            rng = np.random.default_rng(b * 1000 + l + e + 7 * special)
+            cpu = [torch.from_numpy(np.ascontiguousarray(a))
+                   for a in random_lanes(rng, b, l, e, r, 3, special=special)]
+            card = [t.to(dev) for t in cpu]
+            ptrs = [t.data_ptr() for t in card[:3]]
+            before = bm.LAUNCHES
+            got = bm.beam_merge(*card)
+            torch.cuda.synchronize()
+            want = bm.beam_merge(*cpu)
+            if bm.LAUNCHES != before + 1:
+                raise AssertionError(f"beam merge B={b}: {bm.LAUNCHES - before}"
+                                     " launches in one call")
+            for name, g, t, p, w in zip(("dist", "slot", "vis"), got, card,
+                                        ptrs, want):
+                if g is not t or g.data_ptr() != p:
+                    raise AssertionError(f"beam merge B={b}: {name} not in place")
+                g, w = g.cpu(), w
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"beam merge != plain: B={b} L={l} E={e} R={r} "
+                        f"special={special}, {name}")
+            cases += 1
+    log(f"beam merge == plain, bit for bit: {cases} cases "
+        f"({len(CARD_SHAPES)} shapes x plain/special distances), in place, "
+        f"one launch a call, {time.perf_counter() - t0:.1f} s")
+
+    b, l, e, r, s = 1024, 100, 1, 64, 1
+    sets = [[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in random_lanes(np.random.default_rng(i), b, l, e, r, s)]
+            for i in range(reps)]
+    rec = {}
+    for name, fn in (("ms", bm.beam_merge), ("plain_ms", bm.beam_merge_plain)):
+        rec[name] = time_ms(torch, lambda i, fn=fn: fn(*sets[i % reps]), reps)
+    rec["train_ms"] = train_ms(torch, lambda i: bm.beam_merge(*sets[i % reps]),
+                               reps)
+    rec["wall_ms"] = time_ms(torch, lambda i: bm.beam_merge(*sets[i % reps]),
+                             reps, wall=True)
+    rec["plain_wall_ms"] = time_ms(
+        torch, lambda i: bm.beam_merge_plain(*sets[i % reps]), reps, wall=True)
+    # Bytes a lane needs: the beam's and the candidates' 9 bytes an entry
+    # and the seeds' 5 read, the beam's 9 bytes an entry written.
+    nbytes = b * (9 * l + 9 * e * r + 5 * s + 9 * l)
+    rec["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    rec["bound_by"] = "bytes"
+    rec["launches"] = cases
+    log(f"beam merge B={b} L={l} R={r}: kernel {rec['ms']:.5f} ms (train "
+        f"{rec['train_ms']:.5f}, wall {rec['wall_ms']:.4f}), plain "
+        f"{rec['plain_ms']:.4f} ms (wall {rec['plain_wall_ms']:.4f}), bound "
+        f"{rec['bound_ms']:.5f} ms")
+    del sets
+    _free(torch)
+    return {"name": "beam_merge", "route": "cuda",
+            "source": f"{_PKG}/csrc/beam_merge.cu", "replaces": None,
+            "max_abs_err": 0.0, **rec, "library_ms": None}
 
 
 def run_profiler(torch, dev, kernels):
@@ -1030,6 +1113,27 @@ def check_launches(kernels, kernel, label):
     return launches
 
 
+def check_merges(coord, kernel, launches, hops, label):
+    """The beam merge's launches since the counts were set to 0: one a hop
+    the searcher ran. That is at least ``hops`` (the counted hops with an
+    active lane; a lock-step batch also runs up to 3 hops past its last
+    active one before its next loop-condition read stops it), and, where
+    the path has a frontier kernel, as many as its launches on one
+    Coordinator, or a whole fraction of them over row blocks."""
+    from duckdb_lm_diskann_tpu_torch.core.coordinator import Coordinator
+    from duckdb_lm_diskann_tpu_torch.kernels import beam_merge
+
+    merges = beam_merge.LAUNCHES
+    per_hop = launches // merges if merges else 0
+    if merges < max(hops, 1) or (kernel is not None and (
+            launches != per_hop * merges
+            or (isinstance(coord, Coordinator) and per_hop != 1))):
+        raise AssertionError(
+            f"{label}: {merges} beam-merge launches for {hops} hops and "
+            f"{launches} frontier launches")
+    return merges
+
+
 def timed_search(torch, kernels, kernel, coord, queries, k, label, **opts):
     """One Coordinator.search with the counters set to 0 just before; the
     path's kernel must launch and no other. Returns (ids, dists, metrics)
@@ -1045,6 +1149,7 @@ def timed_search(torch, kernels, kernel, coord, queries, k, label, **opts):
     secs = time.perf_counter() - t0
     stats = coord.last_search_stats
     launches = check_launches(kernels, kernel, label)
+    merges = check_merges(coord, kernel, launches, stats.hops, label)
     width = opts.get("beam_width", 1)
     batch = opts["lanes"] if opts.get("stream") else opts.get("batch_size")
     rl = hop_roofline(
@@ -1058,12 +1163,12 @@ def timed_search(torch, kernels, kernel, coord, queries, k, label, **opts):
         "search_s": secs, "qps": qps, "hops": stats.hops,
         "mean_visits_per_query": stats.mean_visits_per_query,
         "sol_qps": rl.sol_qps, "sol_fraction": qps / rl.sol_qps,
-        "launches": launches,
+        "launches": launches, "merge_launches": merges,
     }
     log(f"{label}: {len(queries)} queries in {secs:.3f} s ({qps:.0f} QPS), "
         f"{stats.hops} hops, {m['mean_visits_per_query']:.2f} visits/query, "
         f"sol_qps {rl.sol_qps:.0f} (fraction {m['sol_fraction']:.4f}), "
-        f"{launches} launches")
+        f"{launches} launches, {merges} merges")
     return ids, dists, m
 
 
@@ -1966,12 +2071,13 @@ def multihost_only(n_queries: int) -> int:
     )
     from duckdb_lm_diskann_tpu_torch.core.config import LmDiskannConfig
     from duckdb_lm_diskann_tpu_torch.kernels import _build
+    from duckdb_lm_diskann_tpu_torch.kernels import beam_merge as km
     from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
     from duckdb_lm_diskann_tpu_torch.utils.corpora import make_corpus
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    _build.build_libraries([k4.LIBRARY])
+    _build.build_libraries([k4.LIBRARY, km.LIBRARY])
     p = PATHS["int4_headline"]
     gen, rng = make_corpus(MULTIHOST_ROWS, p["dims"], seed=p["seed"])
     data = gen(MULTIHOST_ROWS)
@@ -2184,13 +2290,14 @@ def ab_only(gist_scale_n: int) -> int:
     t_start = time.perf_counter()
 
     from duckdb_lm_diskann_tpu_torch.kernels import _build
+    from duckdb_lm_diskann_tpu_torch.kernels import beam_merge as km
     from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
     from duckdb_lm_diskann_tpu_torch.kernels import int8_frontier as k8
     from duckdb_lm_diskann_tpu_torch.kernels import row_gather as kg
     from duckdb_lm_diskann_tpu_torch.kernels import ternary_frontier as kt
 
     kernels = {"int4": k4, "ternary": kt, "int8": k8, "row_gather": kg}
-    _build.build_libraries([k4.LIBRARY, kt.LIBRARY])
+    _build.build_libraries([k4.LIBRARY, kt.LIBRARY, km.LIBRARY])
     res = {
         "ab_insert_width": ab_insert_width_card(torch, dev, kernels, k4),
         "ab_width_iso": ab_width_iso_card(torch, dev, kernels, k4),
@@ -2718,6 +2825,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from duckdb_lm_diskann_tpu_torch.kernels import _build
+    from duckdb_lm_diskann_tpu_torch.kernels import beam_merge as km
     from duckdb_lm_diskann_tpu_torch.kernels import int4_frontier as k4
     from duckdb_lm_diskann_tpu_torch.kernels import int8_frontier as k8
     from duckdb_lm_diskann_tpu_torch.kernels import row_gather as kg
@@ -2725,9 +2833,9 @@ def main() -> int:
 
     kernels = {"int4": k4, "ternary": kt, "int8": k8, "row_gather": kg}
     t0 = time.perf_counter()
-    _build.build_libraries([m.LIBRARY for m in kernels.values()])
+    _build.build_libraries([m.LIBRARY for m in (*kernels.values(), km)])
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for m in kernels.values():
+    for m in (*kernels.values(), km):
         if m.LIBRARY.build_log:
             log(f"nvcc {m.LIBRARY.source.name}: "
                 + m.LIBRARY.build_log.strip().replace("\n", "\n[chip_smoke]   "))
@@ -2746,6 +2854,7 @@ def main() -> int:
         records[key]["max_abs_err"] = max(records[key]["max_abs_err"],
                                           cases["max_abs_err"])
     records["gather"], records["gather4"] = check_row_gather(torch, dev)
+    records["beam_merge"] = check_beam_merge(torch, dev)
     profile, hop_instruments, phase3 = run_profiler(torch, dev, kernels)
     records["gather"]["launches"] = phase3["pipelined_gather"]
     records["gather4"]["launches"] = phase3["pipelined_gather4"]
@@ -2794,9 +2903,10 @@ def main() -> int:
     log(f"whole run took {time.perf_counter() - t_start:.1f} s")
 
     # One record per TPU kernel (#1-#7): a CUDA kernel that replaces two
-    # Pallas kernels stands in both rows, with the same numbers.
+    # Pallas kernels stands in both rows, with the same numbers. The beam
+    # merge replaces none and has its own row.
     rows = []
-    for key in ("int4", "ternary", "int8", "gather", "gather4"):
+    for key in ("int4", "ternary", "int8", "gather", "gather4", "beam_merge"):
         rec = dict(records[key])
         also = rec.pop("also_replaces", None)
         rows.append(rec)

@@ -39,7 +39,9 @@ no TPU kernel in the JAX package and are plain gathers here too. At E > 1
 the kernels take B*E rows (the visited nodes flattened, each query
 repeated E times). TERNARY scores are
 integers mapped to distances by ``similarity_to_distance`` after the
-kernel, as in the JAX package.
+kernel, as in the JAX package. The merge of every codec's candidates into
+the beam is ``kernels.beam_merge`` (one kernel launch a hop on the card),
+which writes the beam in place.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from ..common.types import EdgeType, MetricType
+from ..kernels.beam_merge import beam_merge
 from ..kernels.int4_frontier import int4_frontier_scores
 from ..kernels.int8_frontier import int8_frontier_scores
 from ..kernels.ternary_frontier import ternary_frontier_scores
@@ -169,10 +172,11 @@ def _seed_prefix(arrays, queries, seeds, metric, assume_all_valid):
     dist f32[B, S], slots i32[B, S])."""
     B = queries.shape[0]
     if seeds.dim() == 2:
-        seeds_b = seeds
+        seeds_b = seeds.contiguous()
         seed_vec = arrays.vectors[seeds_b.clamp_min(0).long()].float()
     else:
-        seeds_b = seeds[None, :].expand(B, seeds.shape[0])
+        # Materialised once a search: the merge kernel reads rows of it.
+        seeds_b = seeds[None, :].expand(B, seeds.shape[0]).contiguous()
         seed_vec = arrays.vectors.index_select(0, seeds.clamp_min(0)).float()
         seed_vec = seed_vec[None]
     seed_dist = pairwise_distance(queries[:, None, :], seed_vec, metric)
@@ -215,8 +219,9 @@ def _hop(
 ):
     """One hop of every lane: visit the E closest unvisited beam entries,
     take their exact distances, score their neighbors' cached codes and
-    merge the new candidates into the beam. ``beam_vis`` and ``seed_vis``
-    are updated in place. Returns (beam_dist, beam_slot, beam_vis, cur
+    merge the new candidates into the beam. The beam (``beam_dist``,
+    ``beam_slot``, ``beam_vis``) and ``seed_vis`` are updated in place.
+    Returns (beam_dist, beam_slot, beam_vis, cur
     i32[B, E], active bool[B, E], exact f32[B, E])."""
     if rec is not None:
         rec.open("search.hop.visit")
@@ -259,34 +264,14 @@ def _hop(
         live = live & arrays.valid[nbrs.clamp_min(0).long()]
     live = live & active.reshape(-1, 1)
     edge_dist = _score_edges(arrays, params, cur_f, q_f, p_f, nbrs)
-    nbrs = nbrs.reshape(B, E * R)
 
-    # Skip neighbors already in the beam or already-visited seeds (see the
-    # JAX searcher for why this replaces the visited-list scan). Edges to
-    # this hop's own visits are in the beam, so in_beam covers them.
+    # Merge the candidates not already in the beam or among the visited
+    # seeds into the beam, in place (kernels/beam_merge.py).
     if rec is not None:
         rec.switch("search.hop.merge")
-    in_beam = (
-        (nbrs[:, :, None] == beam_slot[:, None, :])
-        & (beam_slot >= 0)[:, None, :]
-    ).any(-1)
-    in_vis_seed = (
-        (nbrs[:, :, None] == seeds_b[:, None, :]) & seed_vis[:, None, :]
-    ).any(-1)
-    cand_ok = live.reshape(B, E * R) & ~in_beam & ~in_vis_seed
-    cand_dist, cand_slot = topk_ops.mask_invalid(
-        edge_dist.reshape(B, E * R), nbrs, cand_ok
-    )
-    # E > 1: two visited nodes may offer the same neighbor; the dedup merge
-    # keeps one copy (the same cached code, so the same distance).
-    beam_dist, beam_slot, beam_vis = topk_ops.merge_beams(
-        beam_dist, beam_slot, cand_dist, cand_slot, L,
-        extras_a=(beam_vis,), extras_b=(torch.zeros_like(cand_ok),),
-        dedup=E > 1,
-    )
-    # Entries that sorted to +inf are empty; normalize their slot to -1.
-    beam_slot = torch.where(
-        torch.isinf(beam_dist), torch.full_like(beam_slot, -1), beam_slot
+    beam_merge(
+        beam_dist, beam_slot, beam_vis, nbrs.reshape(B, E, R),
+        edge_dist.reshape(B, E, R), live.reshape(B, E, R), seeds_b, seed_vis,
     )
     if rec is not None:
         rec.close()

@@ -12,12 +12,13 @@ Importing the module touches neither the card nor any table.
 D=128, INT4 edges, 2^20 rows of random tables), run with one component
 knocked out at a time; a component's cost is ``full`` minus its row:
 
-    -sort        the sorted beam merge (``merge_beams``)
+    -merge       the searcher's merge (``kernels/beam_merge``: the
+                 beam-membership test, the sorted merge and the slot
+                 normalisation, one kernel launch)
     -edgegather  the INT4 frontier kernel (``kernels/int4_frontier``)
     -vislog      the visited-log scatter
-    -inbeam      the beam-membership mask
     -vecgather   the node-vector gather and exact distance
-    bare(min)    all five out: the loop skeleton
+    bare(min)    all four out: the loop skeleton
 
 ``gather``: the row-gather A/B over the same 5,120-byte rows: today's four
 SoA gathers (vectors / neighbors / INT4 codes / scales) against one
@@ -46,10 +47,10 @@ import sys
 import torch
 
 from ..common.types import MetricType
+from ..kernels.beam_merge import beam_merge
 from ..kernels.int4_frontier import int4_frontier_scores
 from ..kernels import row_gather
 from ..kernels.row_gather import pipelined_gather, pipelined_gather4
-from ..ops import topk as topk_ops
 from ..ops.distance import pairwise_distance
 from ..utils import cuda_timing
 
@@ -70,12 +71,15 @@ def _seeds(dev, n=8):
     ]
 
 
-def _hop_step(tables, *, sort=True, egather=True, vislog=True, inbeam=True,
+def _hop_step(tables, *, merge=True, egather=True, vislog=True,
               vgather=True):
     """The port's E=1 hop with the named components knocked out."""
     vectors, edge_i4, edge_scale, neighbors, queries = tables
     l2 = MetricType.L2
-    no_cand = torch.zeros((B, R), dtype=torch.bool, device=queries.device)
+    dev = queries.device
+    live = torch.ones((B, 1, R), dtype=torch.bool, device=dev)
+    seeds = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    seed_vis = torch.zeros((B, 1), dtype=torch.bool, device=dev)
 
     def step(s, i):
         beam_dist, beam_slot, beam_vis, vis_slot, vis_dist, vis_cnt = s
@@ -104,31 +108,18 @@ def _hop_step(tables, *, sort=True, egather=True, vislog=True, inbeam=True,
             )
         else:
             edge_dist = nbrs.float() * 1e-7 + exact[:, None]
-        if inbeam:
-            in_beam = (
-                (nbrs[:, :, None] == beam_slot[:, None, :])
-                & (beam_slot >= 0)[:, None, :]
-            ).any(-1)
-        else:
-            in_beam = nbrs < 0
-        cand_dist = torch.where(in_beam, INF, edge_dist)
-        cand_slot = torch.where(in_beam, -1, nbrs)
-        if sort:
-            new_dist, new_slot, beam_vis = topk_ops.merge_beams(
-                beam_dist, beam_slot, cand_dist, cand_slot, L,
-                extras_a=(beam_vis,), extras_b=(no_cand,),
-            )
-        else:
-            m = min(L, R)
-            new_dist = beam_dist.clone()
-            new_dist[:, :m] = torch.minimum(
-                beam_dist[:, :m], cand_dist[:, :m] * 0.999
-            )
-            pad = torch.full((B, L - m), -1, dtype=torch.int32, device=nbrs.device)
-            new_slot = torch.where(
-                new_dist < beam_dist, torch.cat([cand_slot[:, :m], pad], 1),
-                beam_slot,
-            )
+        if merge:
+            beam_merge(beam_dist, beam_slot, beam_vis, nbrs[:, None],
+                       edge_dist[:, None], live, seeds, seed_vis)
+            return (beam_dist, beam_slot, beam_vis, vis_slot, vis_dist,
+                    vis_cnt)
+        m = min(L, R)
+        new_dist = beam_dist.clone()
+        new_dist[:, :m] = torch.minimum(beam_dist[:, :m], edge_dist[:, :m] * 0.999)
+        pad = torch.full((B, L - m), -1, dtype=torch.int32, device=dev)
+        new_slot = torch.where(
+            new_dist < beam_dist, torch.cat([nbrs[:, :m], pad], 1), beam_slot,
+        )
         new_slot = torch.where(torch.isinf(new_dist), -1, new_slot)
         return (new_dist, new_slot, beam_vis, vis_slot, vis_dist, vis_cnt)
 
@@ -137,13 +128,12 @@ def _hop_step(tables, *, sort=True, egather=True, vislog=True, inbeam=True,
 
 KNOCKOUTS = (
     ("full", {}),
-    ("-sort", dict(sort=False)),
+    ("-merge", dict(merge=False)),
     ("-edgegather", dict(egather=False)),
     ("-vislog", dict(vislog=False)),
-    ("-inbeam", dict(inbeam=False)),
     ("-vecgather", dict(vgather=False)),
-    ("bare(min)", dict(sort=False, egather=False, vislog=False,
-                       inbeam=False, vgather=False)),
+    ("bare(min)", dict(merge=False, egather=False, vislog=False,
+                       vgather=False)),
 )
 
 

@@ -10,13 +10,14 @@ component switchable:
     escore   the frontier scores from the visited node's cached codes
     vgather  the visited node's vector gather and exact distance
     nbrlive  the neighbor-validity gather ``arrays.valid[nbrs]``
-    inbeam   the beam-membership mask
     vislog   the visited-log scatters (slots and distances)
-    merge    the sorted merge (``merge_beams``)
+    merge    the searcher's own merge call (``kernels.beam_merge``: the
+             beam-membership and visited-seed tests, the sorted merge and
+             the slot normalisation; one kernel launch on a CUDA tensor)
     seedvis  the seed-visit tracking
 
 Rows: ``full``, each component knocked out (``-X``: its cost is ``full``
-minus the row) and ``bare(min)`` (all seven out). ``valid=False`` knocks
+minus the row) and ``bare(min)`` (all six out). ``valid=False`` knocks
 ``nbrlive`` out of every row: the serving hop, which searches with
 ``assume_all_valid``. The gap between this ``full`` and ``profile_hop``'s
 is what the copy missed. The loop's own control (the hop count and the
@@ -42,15 +43,14 @@ import sys
 import torch
 
 from ..core import searcher
-from ..ops import topk as topk_ops
+from ..kernels.beam_merge import beam_merge
 from ..ops.distance import pairwise_distance
 from ..utils import cuda_timing
 from .profile_real import CAP_LOG2, B, L, HopTables, _device, make_tables
 
 ITERS_LO, ITERS_HI = 48, 160
 INF = float("inf")
-COMPONENTS = ("escore", "vgather", "nbrlive", "inbeam", "vislog", "merge",
-              "seedvis")
+COMPONENTS = ("escore", "vgather", "nbrlive", "vislog", "merge", "seedvis")
 KNOCKOUTS = (
     ("full", {}),
     *((f"-{c}", {c: False}) for c in COMPONENTS),
@@ -79,7 +79,7 @@ def initial_state(seed_slot: torch.Tensor, l: int, v: int):
 
 
 def make_step(tables: HopTables, *, escore=True, vgather=True, nbrlive=True,
-              inbeam=True, vislog=True, merge=True, seedvis=True):
+              vislog=True, merge=True, seedvis=True):
     """``step(state, i) -> state``: one hop of ``searcher._hop`` (E = 1,
     ``assume_all_valid`` = not ``nbrlive``) and the visited-log append of
     ``searcher.beam_search``, with the named components knocked out. The
@@ -120,28 +120,15 @@ def make_step(tables: HopTables, *, escore=True, vgather=True, nbrlive=True,
                                               nbrs)
         else:
             edge_dist = nbrs.float() * 1e-7 + exact
-        nbrs = nbrs.reshape(b, r)
-
-        if inbeam:
-            in_beam = (
-                (nbrs[:, :, None] == beam_slot[:, None, :])
-                & (beam_slot >= 0)[:, None, :]
-            ).any(-1)
-        else:
-            in_beam = nbrs < 0
-        in_vis_seed = (
-            (nbrs[:, :, None] == seeds_b[:, None, :]) & seed_vis[:, None, :]
-        ).any(-1)
-        cand_ok = live.reshape(b, r) & ~in_beam & ~in_vis_seed
-        cand_dist, cand_slot = topk_ops.mask_invalid(
-            edge_dist.reshape(b, r), nbrs, cand_ok
-        )
         if merge:
-            beam_dist, beam_slot, beam_vis = topk_ops.merge_beams(
-                beam_dist, beam_slot, cand_dist, cand_slot, l,
-                extras_a=(beam_vis,), extras_b=(torch.zeros_like(cand_ok),),
+            beam_merge(
+                beam_dist, beam_slot, beam_vis, nbrs.reshape(b, 1, r),
+                edge_dist.reshape(b, 1, r), live.reshape(b, 1, r), seeds_b,
+                seed_vis,
             )
         else:
+            cand_dist = torch.where(live, edge_dist, INF)
+            cand_slot = torch.where(live, nbrs, -1)
             m = min(l, r)
             new_dist = beam_dist.clone()
             new_dist[:, :m] = torch.minimum(
@@ -154,9 +141,10 @@ def make_step(tables: HopTables, *, escore=True, vgather=True, nbrlive=True,
                 beam_slot,
             )
             beam_dist = new_dist
-        beam_slot = torch.where(
-            torch.isinf(beam_dist), torch.full_like(beam_slot, -1), beam_slot
-        )
+            beam_slot = torch.where(
+                torch.isinf(beam_dist), torch.full_like(beam_slot, -1),
+                beam_slot,
+            )
 
         if vislog:
             order = active.to(torch.int32).cumsum(-1) - 1

@@ -150,8 +150,8 @@ def test_profile_searcher_every_knockout_runs(valid):
         out=lambda s: None,
     )
     names = [r["variant"] for r in rows]
-    assert names == ["full", "-escore", "-vgather", "-nbrlive", "-inbeam",
-                     "-vislog", "-merge", "-seedvis", "bare(min)"]
+    assert names == ["full", "-escore", "-vgather", "-nbrlive", "-vislog",
+                     "-merge", "-seedvis", "bare(min)"]
     for r in rows:
         assert np.isfinite(r["ms_per_hop"]) and r["device_ms_per_hop"] is None
 

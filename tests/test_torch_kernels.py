@@ -28,6 +28,7 @@ import torch
 from duckdb_lm_diskann_tpu_torch.common.types import MetricType
 from duckdb_lm_diskann_tpu_torch.kernels import (
     _build,
+    beam_merge,
     int4_frontier,
     int8_frontier,
     row_gather,
@@ -43,7 +44,8 @@ from tests.torch_configs import METRIC_NAMES, metrics
 from tests.torch_cpu import jax_map_budget, one_torch_thread  # noqa: F401  (autouse)
 
 METRICS = [MetricType.L2, MetricType.IP, MetricType.COSINE]
-KERNELS = [int4_frontier, ternary_frontier, int8_frontier, row_gather]
+KERNELS = [int4_frontier, ternary_frontier, int8_frontier, row_gather,
+           beam_merge]
 
 
 def _inputs(rng, C=64, R=16, B=12, D=32):
@@ -487,8 +489,10 @@ def _constant(source: str, name: str) -> int:
          ternary_frontier.BLOCKS_PER_SM),
         ("ring.cuh", "kMaxStages", _build.RING_MAX_STAGES),
         ("row_gather.cu", "kThreads", row_gather.THREADS),
+        ("beam_merge.cu", "kThreads", beam_merge.THREADS),
     ],
-    ids=["int4", "int8", "ternary", "ring", "gather_threads"],
+    ids=["int4", "int8", "ternary", "ring", "gather_threads",
+         "merge_threads"],
 )
 def test_kernel_constants_match_their_wrappers(source, name, mirror):
     """Each constant a wrapper copies by hand from a CUDA source (the
@@ -535,7 +539,7 @@ def test_parallel_build_reports_every_failure(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError) as err:
         _build.build_libraries([k.LIBRARY for k in KERNELS])
     for name in ("int4_frontier.cu", "ternary_frontier.cu", "int8_frontier.cu",
-                 "row_gather.cu"):
+                 "row_gather.cu", "beam_merge.cu"):
         assert f"cannot build {name}" in str(err.value)
     assert os.listdir(tmp_path / "build") == []
     assert all(k.LIBRARY._fn is None for k in KERNELS)
